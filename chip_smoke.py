@@ -21,8 +21,12 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    at visit_granularity="super" on the bounce chunk, equal too. The
    tvisit half runs after phase 5, once the same RenderSystem has been
    switched to the tvisit intersector (set_setting, which rebuilds the
-   scene with the child-cell tables); it takes pass 0's parent window of
-   the bounce chunk through expand_children;
+   scene with the child-cell tables): the quantisation step diag/qmax of
+   both key tables against numpy's IEEE quotient; then on pass 0's parent
+   window of each chunk the expansion kernel against expand_children_ref
+   (cids, counts and tnears equal) and tvisit against tvisit_ref on the
+   kernel's own lists (t and slot equal, closest and any-hit), timed and
+   bounded as above;
 4. renders the config-2 Cornell scene (64², 8 spp, compacted driver)
    on the card through the visit and the tvisit intersectors and holds
    both to tests/golden/config2_64_8spp.npy (RMSE < 2e-3, the golden
@@ -32,8 +36,8 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    one warm-up sample, then 3 CONVERGE windows of 4 samples; kernel
    launch counters are reset just before the windows and must grow;
 6. the tvisit slice: the same scene, camera and samples after the
-   switch; the tvisit, visit and enum counters must all grow, and the
-   frame must lie within RMSE 2e-3 of phase 5's.
+   switch; the expand, tvisit, visit and enum counters must all grow,
+   and the frame must lie within RMSE 2e-3 of phase 5's.
 
 Any failure raises (non-zero exit, no result). Two lines before the
 last is the kernel table as JSON, then the card's name and power limit;
@@ -59,10 +63,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"enum": "rfw_tpu_torch/csrc/visit_kernels.cu",
            "visit": "rfw_tpu_torch/csrc/visit_kernels.cu",
+           "expand": "rfw_tpu_torch/csrc/expand_kernel.cu",
            "tvisit": "rfw_tpu_torch/csrc/tvisit_kernel.cu"}
+# expand replaces an XLA step, not a Pallas kernel
 REPLACES = {"enum": "rfw_tpu/ops/visit_intersect.py:94",
             "visit": "rfw_tpu/ops/visit_intersect.py:303",
+            "expand": "rfw_tpu/ops/tvisit_intersect.py:89",
             "tvisit": "rfw_tpu/ops/tvisit_intersect.py:186"}
+KERNELS = tuple(SOURCES)
 SEED = 20261016
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense)
 PEAK_FP32 = 67e12          # FLOP/s, an FMA counted as two
@@ -273,7 +281,8 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d+(t?visit_kernel|enum_kernel)", m.group(1))
+            k = re.search(r"\d+(t?visit_kernel|enum_kernel|expand_kernel)",
+                          m.group(1))
             cur = out.setdefault(k.group(1) if k else m.group(1), {})
             continue
         if cur is None:
@@ -441,9 +450,44 @@ def phase_golden():
         _check(rmse < 2e-3, f"config-2 {name} frame RMSE {rmse} >= 2e-3")
 
 
+def pass0_window(tl, rays, diag):
+    """Pass 0's parent window of a stream on the cell table: (ids, t_p),
+    as the tvisit intersector's first pass takes it."""
+    from rfw_tpu_torch.ops import tvisit_intersect as tv
+    from rfw_tpu_torch.ops import visit_intersect as vi
+    bounds = tv.parent_bounds(tl)
+    keys, counts = vi.sort_candidates(
+        vi.block_entries(rays, bounds, tl["n_cells"]), diag, tv.M_C)
+    t_p = bounds.shape[1]
+    return vi.window_candidates(keys, counts, 0, diag, tv.M_C, t_p)[0], t_p
+
+
+def _gran_check(tl, diag) -> None:
+    """The quantisation step diag / qmax of the cell keys and of the
+    child keys on the card: the Python-number division the port used to
+    make against quant_gran's tensor division, which must equal numpy's
+    IEEE float32 quotient."""
+    import torch
+    from rfw_tpu_torch.ops import tvisit_intersect as tv
+    from rfw_tpu_torch.ops import visit_intersect as vi
+    t_c = tl["bmin"].shape[0]
+    for what, qmax in (("cell", (1 << (24 - vi._cid_bits(t_c))) - 1),
+                       ("child", tv._slot_bits(4 * tv.M_C)[1])):
+        old, new = diag / qmax, vi.quant_gran(qmax, diag)
+        ieee = np.float32(diag.item()) / np.float32(qmax)
+        print(f"phase 3: gran of the {what} keys (qmax {qmax}, diag "
+              f"{diag.item()!r}): diag / qmax {old.item()!r}, quant_gran "
+              f"{new.item()!r}, numpy {float(ieee)!r}; the old form "
+              f"{'differs' if not torch.equal(old, new) else 'agrees'}")
+        _check(np.float32(new.item()) == ieee,
+               f"quant_gran of the {what} keys is not the IEEE quotient")
+
+
 def phase_tvisit_kernel(rs, cfg, ptxas):
-    """tvisit against its plain version on pass 0 of the bounce chunk,
-    after the RenderSystem was switched to the tvisit intersector."""
+    """After the RenderSystem was switched to the tvisit intersector: the
+    quantisation step, then on pass 0 of the primary and bounce chunks
+    the expansion kernel against expand_children_ref and tvisit against
+    tvisit_ref on the kernel's lists."""
     import torch
     from rfw_tpu_torch.ops import tvisit_intersect as tv
     from rfw_tpu_torch.ops import visit_intersect as vi
@@ -451,59 +495,87 @@ def phase_tvisit_kernel(rs, cfg, ptxas):
     tl = scene["treelets"]
     _check("bmin32" in tl, "switch to tvisit did not rebuild the scene "
            "with the child tables")
-    bmin32, bmax32, wg32, k32 = tv.child_tables(tl)
-    bounds = tv.parent_bounds(tl)
+    bmin32, bmax32, wg32, wtm32, k32 = tv.child_tables(tl)
     diag = vi.scene_diag(tl)
-    o, d, tm = streams["bounce"]
-    rays = vi._pack_rays(o, d, tm)
-    keys, counts = vi.sort_candidates(
-        vi.block_entries(rays, bounds, tl["n_cells"]), diag, tv.M_C)
-    ids = vi.window_candidates(keys, counts, 0, diag, tv.M_C,
-                               bounds.shape[1])[0]
-    cids, ccounts, ctnears = tv.expand_children(ids, o, d, tm, bmin32,
-                                                bmax32, diag, bounds.shape[1])
-    p = ptxas.get("tvisit_kernel", {})
-    print(f"phase 3: tvisit bounce chunk ({live} live lanes): "
-          f"{cids.shape[0]} sub-blocks, {wg32.shape[0]} children of {k32} "
-          f"triangles, mean child list "
-          f"{float(ccounts.float().mean()):.1f} (max {int(ccounts.max())}); "
-          f"tvisit_kernel ptxas: {p.get('registers')} registers, "
-          f"{p.get('smem')} B static shared memory, "
-          f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill "
-          f"stores/loads")
-    report = {"err": 0.0}
-    for any_hit in (False, True):
-        args = (rays, cids, ccounts, ctnears, wg32, k32,
-                float(cfg.t_epsilon), any_hit)
-        walked = torch.zeros(cids.shape[0], dtype=torch.int32,
-                             device=rays.device)
-        t_k, s_k = tv.tvisit(*args, walked=walked)
-        t_p, s_p = tv.tvisit_ref(*args)
-        torch.cuda.synchronize()
-        mode = "any-hit" if any_hit else "closest"
-        agree = float((s_k == s_p).float().mean())
-        _check(torch.equal(s_k, s_p) and torch.equal(t_k, t_p),
-               f"tvisit kernel != plain on bounce {mode} "
-               f"(slot agreement {agree})")
-        report["err"] = max(report["err"], float((t_k - t_p).abs().max()))
-        ms_k = _median_ms(lambda: tv.tvisit(*args))
-        ms_p = _median_ms(lambda: tv.tvisit_ref(*args), reps=3)
-        found = float((s_k >= 0).float().mean())
+    _gran_check(tl, diag)
+    for name in ("expand_kernel", "tvisit_kernel"):
+        p = ptxas.get(name, {})
+        print(f"phase 3: {name} ptxas: {p.get('registers')} registers, "
+              f"{p.get('smem')} B static shared memory, "
+              f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill "
+              f"stores/loads")
+    eps = float(cfg.t_epsilon)
+    report = {"expand": {"err": 0.0}, "tvisit": {"err": 0.0}}
+    for name in ("primary", "bounce"):
+        o, d, tm = streams[name]
+        rays = vi._pack_rays(o, d, tm)
         n = rays.shape[1]
-        tests = float(walked.sum()) * tv.LANES * k32
-        tb = _bound(tests * FLOP_PER_TEST,
-                    4.0 * (9 * n + 2 * cids.numel() + ccounts.numel()
-                           + wg32.numel()))
-        print(f"phase 3: tvisit bounce   {mode:7s} equal (found {found:.4f}),"
-              f" kernel {ms_k:.3f} ms (median of 5), plain {ms_p:.3f} ms "
-              f"(median of 3), bound {tb['bound_ms']:.3f} ms "
-              f"({tb['bound_by']}, {tests:.4g} tests; {tb['half_ms']:.3f} ms "
-              f"at the unfused half rate), share of bound "
-              f"{tb['bound_ms'] / ms_k:.3f}")
-        print(f"phase 3: tvisit bounce   {mode:7s} "
-              f"{_walked_stats(walked, ccounts)}")
-        if not any_hit:
-            report.update(ms=ms_k, plain_ms=ms_p, **tb)
+        ids, t_p = pass0_window(tl, rays, diag)
+        args = (ids, rays, bmin32, bmax32, diag, t_p)
+        lists = tv.expand_children(*args)
+        plain = tv.expand_children_ref(*args)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("cids", "counts", "tnears"), lists, plain):
+            _check(torch.equal(a, b), f"expansion kernel != plain on {name} "
+                   f"({what}: {float((a != b).float().mean())} differ)")
+        cids, ccounts, ctnears = lists
+        ms_k = _median_ms(lambda: tv.expand_children(*args))
+        ms_p = _median_ms(lambda: tv.expand_children_ref(*args))
+        # the work this window needs: each live lane against the real
+        # children (those of a valid parent) of its block's window
+        live_b = (rays[3] > 0).reshape(-1, vi.BLOCK).sum(1)
+        real_b = 4 * (ids < t_p).sum(1)
+        pairs = float((live_b * real_b).sum())
+        xb = _bound(pairs * FLOP_PER_SLAB,
+                    4.0 * (7 * n + ids.numel() + 6 * bmin32.shape[0]
+                           + 2 * cids.numel() + ccounts.numel()))
+        print(f"phase 3: expand {name:8s} equal (cids, counts, tnears; "
+              f"{cids.shape[0]} sub-blocks, mean child list "
+              f"{float(ccounts.float().mean()):.1f}, max "
+              f"{int(ccounts.max())}; mean real child slots a window "
+              f"{float(real_b.float().mean()):.1f}), kernel {ms_k:.3f} ms, "
+              f"plain {ms_p:.3f} ms, bound {xb['bound_ms']:.4f} ms "
+              f"({xb['bound_by']}, {pairs:.4g} live (ray, child) pairs; "
+              f"{xb['half_ms']:.4f} ms at the unfused half rate), share of "
+              f"bound {xb['bound_ms'] / ms_k:.3f}")
+        if name == "bounce":
+            report["expand"].update(ms=ms_k, plain_ms=ms_p, **xb)
+        for any_hit in (False, True):
+            targs = (rays, cids, ccounts, ctnears, wg32, wtm32, k32, eps,
+                     any_hit)
+            rargs = (rays, cids, ccounts, ctnears, wg32, k32, eps, any_hit)
+            walked = torch.zeros(cids.shape[0], dtype=torch.int32,
+                                 device=rays.device)
+            t_k, s_k = tv.tvisit(*targs, walked=walked)
+            t_r, s_r = tv.tvisit_ref(*rargs)
+            torch.cuda.synchronize()
+            mode = "any-hit" if any_hit else "closest"
+            agree = float((s_k == s_r).float().mean())
+            _check(torch.equal(s_k, s_r) and torch.equal(t_k, t_r),
+                   f"tvisit kernel != plain on {name} {mode} "
+                   f"(slot agreement {agree})")
+            report["tvisit"]["err"] = max(report["tvisit"]["err"],
+                                          float((t_k - t_r).abs().max()))
+            ms_k = _median_ms(lambda: tv.tvisit(*targs))
+            ms_p = _median_ms(lambda: tv.tvisit_ref(*rargs), reps=3)
+            found = float((s_k >= 0).float().mean())
+            tests = float(walked.sum()) * tv.LANES * k32
+            tb = _bound(tests * FLOP_PER_TEST,
+                        4.0 * (9 * n + 2 * cids.numel() + ccounts.numel()
+                               + wtm32.numel()))
+            print(f"phase 3: tvisit {name:8s} {mode:7s} equal (found "
+                  f"{found:.4f}), kernel {ms_k:.3f} ms (median of 5), plain "
+                  f"{ms_p:.3f} ms (median of 3), bound {tb['bound_ms']:.3f} "
+                  f"ms ({tb['bound_by']}, {tests:.4g} tests; "
+                  f"{tb['half_ms']:.3f} ms at the unfused half rate), share "
+                  f"of bound {tb['bound_ms'] / ms_k:.3f}")
+            print(f"phase 3: tvisit {name:8s} {mode:7s} "
+                  f"{_walked_stats(walked, ccounts)}")
+            if name == "bounce" and not any_hit:
+                report["tvisit"].update(ms=ms_k, plain_ms=ms_p, **tb)
+    print(f"phase 3: tvisit chunks: {live} live bounce lanes, "
+          f"{wtm32.shape[0]} children of {k32} triangles, triangle-major "
+          f"child planes {tuple(wtm32.shape)}")
     return report
 
 
@@ -593,7 +665,7 @@ def main() -> int:
     print(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {cuda_lib.build_seconds:.2f} s)")
     ptxas = ptxas_report(cuda_lib.build_log)
-    for name in ("enum_kernel", "visit_kernel", "tvisit_kernel"):
+    for name in (f"{k}_kernel" for k in KERNELS):
         p = ptxas.get(name, {})
         print(f"phase 2: {name}: {p.get('registers')} registers, "
               f"{p.get('smem')} B static shared memory, {p.get('stack')} B "
@@ -616,29 +688,30 @@ def main() -> int:
                                         args.profile, ("enum", "visit"))
     t0 = time.perf_counter()
     rs.set_setting("intersector", "tvisit")
-    report["tvisit"] = phase_tvisit_kernel(rs, cfg, ptxas)
+    report.update(phase_tvisit_kernel(rs, cfg, ptxas))
     print(f"phase 3: switch to tvisit, rebuild and tvisit checks "
           f"{time.perf_counter() - t0:.1f} s")
     png6 = args.png and os.path.splitext(args.png)[0] + "_tvisit.png"
     launches_t, frame_tvisit = phase_slice(rs, n_tris, "phase 6", png6,
                                            args.profile,
-                                           ("enum", "visit", "tvisit"))
+                                           ("enum", "visit", "expand",
+                                            "tvisit"))
     rmse = _rmse(frame_tvisit, frame_visit)
     diff = float(np.abs(frame_tvisit - frame_visit).max())
     print(f"phase 6: tvisit frame vs phase 5's visit frame: RMSE {rmse:.6g} "
           f"(bar 2e-3), max abs difference {diff:.6g}")
     _check(rmse < 2e-3, f"tvisit slice frame RMSE {rmse} >= 2e-3")
-    launches["tvisit"] = launches_t["tvisit"]
+    launches.update(expand=launches_t["expand"], tvisit=launches_t["tvisit"])
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
-    # no single PyTorch call computes any of the three functions
+    # no single PyTorch call computes any of the four functions
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["err"], "ms": report[name]["ms"],
                 "plain_ms": report[name]["plain_ms"],
                 "bound_ms": report[name]["bound_ms"],
                 "bound_by": report[name]["bound_by"], "library_ms": None}
-               for name in ("enum", "visit", "tvisit")]
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

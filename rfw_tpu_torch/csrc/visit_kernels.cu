@@ -19,15 +19,15 @@
 
 #include <cuda_runtime.h>
 
+#include "kernel_common.cuh"
+
 namespace {
+
+using rfw::cp_async_wait_all;
+using rfw::safe_inv;
 
 constexpr int kBlock = 256;      // rays per ray block
 constexpr int kExitEvery = 4;    // visits between early-exit votes
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float s = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
-  return 1.0f / s;
-}
 
 // ---------------------------------------------------------------------------
 // enum
@@ -49,7 +49,8 @@ constexpr int kEnumSpan = kEnumThreads * kEnumCells;       // cells a block
 // (1/d.xyz, pad), and each thread keeps 4 cells' boxes and minima in
 // registers, so the two vector loads of a staged ray serve 4 slab tests
 // (on an H100 one or two cells a thread ran 11-21 % slower:
-// rfw_tpu_torch/tools/enum_variant.py). No atomics and no cross-thread reduction: the result is deterministic.
+// rfw_tpu_torch/tools/kernel_variant.py). No atomics and no cross-thread
+// reduction: the result is deterministic.
 // Bound: FP32 issue, ~28 operations per (live ray, cell). Two kinds of
 // work are skipped, both exactly:
 // - the cells past n_real are the build's padding, far boxes no ray
@@ -132,28 +133,6 @@ enum_kernel(const float* __restrict__ rays, int n,
 constexpr int kRaysPerThread = 2;
 constexpr int kVisitThreads = kBlock / kRaysPerThread;   // 128
 
-// 16-byte global -> shared copy that bypasses the registers (and L1).
-__device__ __forceinline__ void cp_async16(float4* smem, const float* gmem) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Every thread of the block issues its share of one granule's copy
-// (n4 16-byte chunks) as one cp.async group.
-__device__ __forceinline__ void stage_granule(float4* dst, const float* src,
-                                              int n4) {
-  for (int c = threadIdx.x; c < n4; c += kVisitThreads)
-    cp_async16(dst + c, src + 4 * c);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // visit: per ray block, walk the entry-sorted granule list and Woop-test
 // every ray against every triangle of each granule, keeping each ray's
 // closest hit.
@@ -231,7 +210,8 @@ visit_kernel(const float* __restrict__ rays, int n,
     s_ids[e] = min(ids[(size_t)b * m_c + e], n_gran - 1);
   __syncthreads();
   if (n_step > 0)
-    stage_granule(s_mem, planes + (size_t)s_ids[0] * gran_tris * 12, stage4);
+    rfw::stage_granule<kVisitThreads>(
+        s_mem, planes + (size_t)s_ids[0] * gran_tris * 12, stage4);
 
   int steps = 0;
   for (int i = 0; i < n_step; ++i) {
@@ -242,8 +222,9 @@ visit_kernel(const float* __restrict__ rays, int n,
     __syncthreads();
     if (i + 1 < n_step) {
       const int gn = s_ids[min(i + 1, m_c - 1)];
-      stage_granule(s_mem + ((i + 1) & 1) * stage4,
-                    planes + (size_t)gn * gran_tris * 12, stage4);
+      rfw::stage_granule<kVisitThreads>(
+          s_mem + ((i + 1) & 1) * stage4,
+          planes + (size_t)gn * gran_tris * 12, stage4);
     }
     const int g = s_ids[min(i, m_c - 1)];
     const float4* w = s_mem + (i & 1) * stage4;

@@ -3,10 +3,11 @@
 Each source is compiled by its own ``nvcc`` process, all started
 together, and the objects are linked into one shared library with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
-build takes seconds. The library lands in ``rfw_tpu_torch/_build/``
-(listed in ``.gitignore``) under a name keyed by the hash of the sources
-and flags: editing a source rebuilds it at the next load. Nothing is
-built at import time; ``load()`` builds on first use.
+build takes seconds. The sources share the device helpers of
+``csrc/*.cuh``. The library lands in ``rfw_tpu_torch/_build/`` (listed
+in ``.gitignore``) under a name keyed by the hash of the sources, their
+headers and the flags: editing either rebuilds it at the next load.
+Nothing is built at import time; ``load()`` builds on first use.
 
 ``--fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions compute them, so the kernels can be held to their
@@ -16,6 +17,7 @@ plain versions bit for bit. Division stays IEEE (no ``--use_fast_math``).
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -25,7 +27,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", f)
-                for f in ("visit_kernels.cu", "tvisit_kernel.cu"))
+                for f in ("visit_kernels.cu", "expand_kernel.cu",
+                          "tvisit_kernel.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -43,9 +46,16 @@ def _nvcc() -> str:
     return path
 
 
+def headers() -> list:
+    """The headers beside the sources (``#include "..."`` finds them
+    there)."""
+    dirs = sorted({os.path.dirname(src) for src in SOURCES})
+    return sorted(h for d in dirs for h in glob.glob(os.path.join(d, "*.cuh")))
+
+
 def _library_path() -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *headers()):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"rfw_kernels_{h.hexdigest()[:16]}.so")
@@ -111,8 +121,9 @@ def load() -> ctypes.CDLL:
     lib.rfw_enum_entries.restype = i
     lib.rfw_visit.argtypes = [p, i, p, p, p, i, p, i, i, i, f, i, p, p, p, p]
     lib.rfw_visit.restype = i
-    lib.rfw_tvisit.argtypes = [p, i, p, p, p, i, p, i, i, i, i, f, i, p, p, p,
-                               p]
+    lib.rfw_expand.argtypes = [p, i, p, i, i, p, p, p, p, i, f, f, p, p, p, p]
+    lib.rfw_expand.restype = i
+    lib.rfw_tvisit.argtypes = [p, i, p, p, p, i, p, i, i, f, i, p, p, p, p]
     lib.rfw_tvisit.restype = i
     lib.rfw_error_string.argtypes = [i]
     lib.rfw_error_string.restype = ctypes.c_char_p

@@ -6,11 +6,11 @@ Parent candidates come from the visit intersector unchanged
 keys, windows of ``M_C`` cells, recull passes), always at cell
 granularity. Then, per pass:
 
-1. **Expand** (``expand_children``, plain torch): each window's parents
-   become ``4 * M_C`` child cells of K/4 triangles (``subdivide_cells``).
-   Every ray of a 128-ray sub-block is slab-tested against them, the
-   entries are reduced per sub-block and row-sorted into a front-to-back
-   child list per sub-block.
+1. **Expand** (kernel ``expand_children``): each window's parents become
+   ``4 * M_C`` child cells of K/4 triangles (``subdivide_cells``). Every
+   ray of a 128-ray sub-block is slab-tested against them, the entries
+   are reduced per sub-block and row-sorted into a front-to-back child
+   list per sub-block.
 2. **Visit** (kernel ``tvisit``): per sub-block, walk its child list and
    Woop-test its 128 rays against each child's triangles, with an early
    exit once no later child can win.
@@ -20,11 +20,13 @@ stays exact. Slots are the visit intersector's (child·K/4 + k equals
 cell·K + sub-range), so the shared closest-hit/any-hit drivers refine
 and map them unchanged.
 
-The kernel is hand-written CUDA (``csrc/tvisit_kernel.cu``). Its wrapper
-runs the plain version ``tvisit_ref`` only for CPU tensors; a CUDA tensor
-launches the kernel, and any other device raises. The scene needs the
-child tables that ``build_device_scene`` adds under
-``config.subcell_tables``.
+Both kernels are hand-written CUDA (``csrc/expand_kernel.cu``,
+``csrc/tvisit_kernel.cu``). Their wrappers run the plain versions
+(``expand_children_ref``, ``tvisit_ref``) only for CPU tensors; a CUDA
+tensor launches the kernel, and any other device raises. The scene needs
+the child tables that ``build_device_scene`` adds under
+``config.subcell_tables``; the tvisit kernel reads their triangle-major
+form ``wplanes32_tm`` (``visit_intersect.device_tables``).
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from .intersect import BIG_T, safe_inv_dir
 from .visit_intersect import (BLOCK, EXIT_EVERY, M_C, _BIGKEY,
                               _check_inputs, _kernel_device, _pack_rays, _ptr,
                               _stream, any_hit_driver, closest_hit_driver,
-                              launch_counts, quant_scale, scene_diag,
-                              slab_crossed, trace_passes)
+                              launch_counts, quant_gran, quant_scale,
+                              scene_diag, slab_crossed, trace_passes)
 
 SUB = 2                 # sub-blocks per 256-ray block
 LANES = BLOCK // SUB    # rays per sub-block
@@ -48,9 +50,16 @@ _CHUNK_BLOCKS = 256     # blocks per slab chunk: (256, 256, 4*M_C) floats
 # Child expansion: parent window → per-sub-block entry-sorted child lists
 # ---------------------------------------------------------------------------
 
-def expand_children(ids, origins, directions, t_hi, bmin32, bmax32, diag,
-                    t_p: int):
-    """Parent window ids (NB, M_C) → per-sub-block child visit lists.
+def _slot_bits(cslots: int) -> tuple:
+    """(slot bits, qmax) of the packed child keys: 9 slot bits at
+    4·M_C = 512 leave 15 bits of quantized entry."""
+    sb = max((cslots - 1).bit_length(), 1)
+    return sb, (1 << (24 - sb)) - 1
+
+
+def expand_children_ref(ids, rays, bmin32, bmax32, diag, t_p: int):
+    """Plain version of the expansion kernel: parent window ids (NB, M_C)
+    and rays (8, N) → per-sub-block child visit lists.
 
     Slab-tests every ray of each sub-block against the 4·M_C child boxes
     of its block's window (chunked over blocks, one axis at a time, to
@@ -76,29 +85,26 @@ def expand_children(ids, origins, directions, t_hi, bmin32, bmax32, diag,
         nb, cslots, 6)
     cbw = torch.where((cid < t32)[:, :, None], cbw, 3e37)
 
-    o_b = origins.reshape(nb, BLOCK, 3)
-    inv_b = safe_inv_dir(directions).reshape(nb, BLOCK, 3)
-    th_b = t_hi.reshape(nb, BLOCK)
+    r = rays.reshape(8, nb, BLOCK)
+    inv = safe_inv_dir(r[4:7])
     e_sub = torch.empty((nb, SUB, cslots), dtype=torch.float32, device=dev)
     for s in range(0, nb, _CHUNK_BLOCKS):
         c = slice(s, s + _CHUNK_BLOCKS)
         ent = ext = None
         for ax in range(3):
-            o = o_b[c, :, ax, None]                       # (nbc, B, 1)
-            iv = inv_b[c, :, ax, None]
+            o = r[ax, c, :, None]                         # (nbc, B, 1)
+            iv = inv[ax, c, :, None]
             t1 = (cbw[c, None, :, ax] - o) * iv           # (nbc, B, S)
             t2 = (cbw[c, None, :, 3 + ax] - o) * iv
             lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
             ent = lo if ent is None else torch.maximum(ent, lo)
             ext = hi if ext is None else torch.minimum(ext, hi)
         ent = torch.clamp(ent, min=0.0)
-        e = torch.where(slab_crossed(ent, ext, th_b[c, :, None]), ent, 1e30)
+        e = torch.where(slab_crossed(ent, ext, r[3, c, :, None]), ent, 1e30)
         e_sub[c] = e.reshape(-1, SUB, LANES, cslots).amin(2)
     e_sub = e_sub.reshape(nb * SUB, cslots)
 
-    # 9 slot bits at 4·M_C = 512 leave 15 bits of quantized entry
-    sb = max((cslots - 1).bit_length(), 1)
-    qmax = (1 << (24 - sb)) - 1
+    sb, qmax = _slot_bits(cslots)
     q = torch.clamp(torch.floor(e_sub * quant_scale(qmax, diag)), 0.0,
                     float(qmax))
     slot_f = torch.arange(cslots, dtype=torch.float32, device=dev)[None]
@@ -110,10 +116,50 @@ def expand_children(ids, origins, directions, t_hi, bmin32, bmax32, diag,
     cid_sub = cid.repeat_interleave(SUB, dim=0)           # (NB·SUB, S)
     cids = torch.where(valid, torch.gather(cid_sub, 1, slot_srt.long()),
                        t32).to(torch.int32)
-    gran = diag / qmax
-    tnears = torch.where(valid, torch.floor(keys / float(1 << sb)) * gran,
-                         BIG_T)
+    tnears = torch.where(valid, torch.floor(keys / float(1 << sb))
+                         * quant_gran(qmax, diag), BIG_T)
     return cids.contiguous(), counts, tnears.contiguous()
+
+
+def expand_children(ids, rays, bmin32, bmax32, diag, t_p: int):
+    """Per-sub-block child visit lists (cids, counts, tnears) of a parent
+    window: the expansion kernel on CUDA tensors, ``expand_children_ref``
+    on CPU tensors (see there). ``diag`` is the scene diagonal as a
+    0-dim tensor; the kernel reads the quantisation scale and step from
+    the device, with no host sync."""
+    nb, m_p = ids.shape
+    cslots = 4 * m_p
+    n = rays.shape[1]
+    if (rays.shape[0] != 8 or n != nb * BLOCK
+            or bmin32.shape != (4 * t_p, 3) or bmax32.shape != bmin32.shape
+            or diag.shape != ()):
+        raise ValueError(
+            f"bad shapes: ids {tuple(ids.shape)}, rays {tuple(rays.shape)}, "
+            f"child boxes {tuple(bmin32.shape)}/{tuple(bmax32.shape)} for "
+            f"{t_p} parents, diag {tuple(diag.shape)}")
+    if not _kernel_device(rays):
+        return expand_children_ref(ids, rays, bmin32, bmax32, diag, t_p)
+    _check_inputs(rays.device, rays=(rays, torch.float32),
+                  ids=(ids, torch.int32), bmin32=(bmin32, torch.float32),
+                  bmax32=(bmax32, torch.float32), diag=(diag, torch.float32))
+    sb, qmax = _slot_bits(cslots)
+    scale = quant_scale(qmax, diag)
+    gran = quant_gran(qmax, diag)
+    cids = torch.empty((nb * SUB, cslots), dtype=torch.int32,
+                       device=rays.device)
+    counts = torch.empty(nb * SUB, dtype=torch.int32, device=rays.device)
+    tnears = torch.empty((nb * SUB, cslots), dtype=torch.float32,
+                         device=rays.device)
+    if n == 0:
+        return cids, counts, tnears
+    lib = cuda_lib.load()
+    err = lib.rfw_expand(_ptr(rays), n, _ptr(ids), m_p, t_p, _ptr(bmin32),
+                         _ptr(bmax32), _ptr(scale), _ptr(gran), sb,
+                         float(qmax), float(BIG_T), _ptr(cids), _ptr(counts),
+                         _ptr(tnears), _stream(rays.device))
+    cuda_lib.check(err, "expansion kernel")
+    launch_counts["expand"] += 1
+    return cids, counts, tnears
 
 
 # ---------------------------------------------------------------------------
@@ -182,43 +228,46 @@ def tvisit_ref(rays, cids, counts, tnears, wg32, k_size: int,
             torch.where(found, bs, -1).reshape(-1))
 
 
-def tvisit(rays, cids, counts, tnears, wg32, k_size: int, t_epsilon: float,
-           any_hit: bool, walked=None):
+def tvisit(rays, cids, counts, tnears, wg32, wtm32, k_size: int,
+           t_epsilon: float, any_hit: bool, walked=None):
     """Per-sub-block child-list walk: per-ray (t, slot). The tvisit kernel
-    on CUDA tensors, ``tvisit_ref`` on CPU tensors. ``walked``, an (NS,)
-    int32 tensor, receives each sub-block's count of walked visits
-    (kernel only)."""
-    if not _kernel_device(rays):
-        if walked is not None:
-            raise ValueError("walked visits are counted by the kernel only")
-        return tvisit_ref(rays, cids, counts, tnears, wg32, k_size,
-                          t_epsilon, any_hit)
+    on CUDA tensors, reading the triangle-major child planes ``wtm32``
+    (T32, K, 12); ``tvisit_ref`` on CPU tensors, reading the lane-padded
+    ``wg32`` (T32, 16, 128). ``walked``, an (NS,) int32 tensor, receives
+    each sub-block's count of walked visits (kernel only)."""
     ns, cslots = cids.shape
     n = rays.shape[1]
     if (rays.shape[0] != 8 or n != ns * LANES or counts.shape != (ns,)
             or tnears.shape != (ns, cslots) or wg32.dim() != 3
             or wg32.shape[1] < 12 or not 0 < k_size <= wg32.shape[2]
+            or wtm32.shape != (wg32.shape[0], k_size, 12)
             or (walked is not None and walked.shape != (ns,))):
         raise ValueError(
             f"bad shapes: rays {tuple(rays.shape)}, cids "
             f"{tuple(cids.shape)}, counts {tuple(counts.shape)}, tnears "
             f"{tuple(tnears.shape)}, planes {tuple(wg32.shape)}, "
-            f"k_size {k_size}")
+            f"triangle-major planes {tuple(wtm32.shape)}, k_size {k_size}")
+    if not _kernel_device(rays):
+        if walked is not None:
+            raise ValueError("walked visits are counted by the kernel only")
+        return tvisit_ref(rays, cids, counts, tnears, wg32, k_size,
+                          t_epsilon, any_hit)
     _check_inputs(rays.device, rays=(rays, torch.float32),
                   cids=(cids, torch.int32), counts=(counts, torch.int32),
                   tnears=(tnears, torch.float32),
-                  planes=(wg32, torch.float32))
+                  planes_tm=(wtm32, torch.float32))
     if walked is not None:
         _check_inputs(rays.device, walked=(walked, torch.int32))
+    if wtm32.data_ptr() % 16:
+        raise ValueError("triangle-major planes must be 16-byte aligned")
     t_out = torch.empty(n, dtype=torch.float32, device=rays.device)
     slot_out = torch.empty(n, dtype=torch.int32, device=rays.device)
     if n == 0:
         return t_out, slot_out
     lib = cuda_lib.load()
     err = lib.rfw_tvisit(_ptr(rays), n, _ptr(cids), _ptr(counts),
-                         _ptr(tnears), cslots, _ptr(wg32), wg32.shape[0],
-                         wg32.shape[1] * wg32.shape[2], wg32.shape[2], k_size,
-                         float(t_epsilon), int(any_hit), _ptr(t_out),
+                         _ptr(tnears), cslots, _ptr(wtm32), wtm32.shape[0],
+                         k_size, float(t_epsilon), int(any_hit), _ptr(t_out),
                          _ptr(slot_out),
                          None if walked is None else _ptr(walked),
                          _stream(rays.device))
@@ -232,8 +281,8 @@ def tvisit(rays, cids, counts, tnears, wg32, k_size: int, t_epsilon: float,
 # ---------------------------------------------------------------------------
 
 def child_tables(tl):
-    """(bmin32, bmax32, wplanes32, k32) of the scene's treelets; raises
-    ValueError when the scene was built without them."""
+    """(bmin32, bmax32, wplanes32, wplanes32_tm, k32) of the scene's
+    treelets; raises ValueError when the scene was built without them."""
     if "bmin32" not in tl:
         raise ValueError(
             "the tvisit intersector needs the sub-cell child tables: build "
@@ -242,7 +291,8 @@ def child_tables(tl):
     # child triangle count from the slot table (the plane blocks are
     # lane-padded to 128, so their width cannot tell)
     k32 = tl["slot_to_prim"].shape[0] // tl["bmin32"].shape[0]
-    return tl["bmin32"], tl["bmax32"], tl["wplanes32"], k32
+    return (tl["bmin32"], tl["bmax32"], tl["wplanes32"], tl["wplanes32_tm"],
+            k32)
 
 
 def parent_bounds(tl):
@@ -258,16 +308,17 @@ def _trace(scene, origins, directions, t_max, config, any_hit: bool,
     """Parent windows expanded to child lists and walked by the tvisit
     kernel, pass after pass."""
     tl = scene["treelets"]
-    bmin32, bmax32, wg32, k32 = child_tables(tl)
+    bmin32, bmax32, wg32, wtm32, k32 = child_tables(tl)
     bounds8 = parent_bounds(tl)
     t_p = bounds8.shape[1]
     diag = scene_diag(tl)
 
     def visit_window(ids, counts, tnears, t_hi):
-        cids, ccounts, ctnears = expand_children(
-            ids, origins, directions, t_hi, bmin32, bmax32, diag, t_p)
-        return tvisit(_pack_rays(origins, directions, t_hi), cids, ccounts,
-                      ctnears, wg32, k32, float(config.t_epsilon), any_hit)
+        rays = _pack_rays(origins, directions, t_hi)    # one packing, both
+        cids, ccounts, ctnears = expand_children(ids, rays, bmin32, bmax32,
+                                                 diag, t_p)
+        return tvisit(rays, cids, ccounts, ctnears, wg32, wtm32, k32,
+                      float(config.t_epsilon), any_hit)
 
     return trace_passes(origins, directions, t_max, bounds8, tl["n_cells"],
                         diag, M_C, any_hit, coherent, visit_window)

@@ -17,12 +17,13 @@ wrappers run the plain PyTorch versions (``block_entries_ref``,
 and any other device raises. Rays travel as (8, N) SoA rows: origin xyz,
 t_max, direction xyz, pad.
 
-Two tables derived from the scene build serve the kernels
-(``device_tables``, once per build): the triangle-major planes
-``wplanes_tm`` (T, K, 12), from which the visit kernel copies a cell's
-contiguous 12·K floats per visit while the plain version keeps reading
-``wplanes``; and the real cell counts, past which the enum kernel writes
-"no entry" without testing.
+Tables derived from the scene build serve the kernels (``device_tables``,
+once per build): the triangle-major planes ``wplanes_tm`` (T, K, 12),
+from which the visit kernel copies a cell's contiguous 12·K floats per
+visit while the plain version keeps reading ``wplanes`` (and, for a scene
+with the sub-cell child tables, ``wplanes32_tm`` for the tvisit kernel);
+and the real cell counts, past which the enum kernel writes "no entry"
+without testing.
 """
 
 from __future__ import annotations
@@ -46,9 +47,9 @@ _BIGKEY = float(1 << 25)
 FAR_BOX = 1e37
 
 # launches of each kernel since the last reset (plain-version calls on
-# CPU tensors do not count); ops/tvisit_intersect.py counts its kernel
+# CPU tensors do not count); ops/tvisit_intersect.py counts its kernels
 # here too, so one reset covers every kernel of the intersectors
-launch_counts = {"enum": 0, "visit": 0, "tvisit": 0}
+launch_counts = {"enum": 0, "visit": 0, "expand": 0, "tvisit": 0}
 
 
 def reset_launch_counts() -> None:
@@ -207,6 +208,13 @@ def quant_scale(qmax: int, diag):
     return diag.new_full((), float(qmax)) / diag
 
 
+def quant_gran(qmax: int, diag):
+    """diag / qmax, the width of one quantisation step, as one float32
+    division of two tensors (a CUDA tensor divided by a Python number is
+    multiplied by its reciprocal, which can round one ulp away)."""
+    return diag / diag.new_full((), float(qmax))
+
+
 def sort_candidates(b_entry, diag, m_c: int):
     """(NB, T) entries → (keys_all, counts_all): the full entry-sorted
     packed-key table, computed once per launch. Keys pack the quantized
@@ -234,7 +242,7 @@ def window_candidates(keys_all, counts_all, it: int, diag, m_c: int, t_c: int):
     this window (BIG_T when exhausted)."""
     cb = _cid_bits(t_c)
     qmax = (1 << (24 - cb)) - 1
-    gran = diag / qmax
+    gran = quant_gran(qmax, diag)
     t_pad = keys_all.shape[1]
     start = min(it * m_c, t_pad - m_c)
     keys = keys_all[:, start:start + m_c]
@@ -425,11 +433,17 @@ def real_cells(lo) -> int:
 
 def device_tables(tl) -> dict:
     """The tables the kernels derive from a scene build, made once per
-    build (``scene_data.scene_to_torch``): the triangle-major planes and
-    the real cell counts of the cell and super-cell tables."""
-    return {"wplanes_tm": triangle_major(tl["wplanes"]),
-            "n_cells": real_cells(tl["bmin"]),
-            "n_super": real_cells(tl["sbmin"])}
+    build (``scene_data.scene_to_torch``): the triangle-major planes of
+    the cells (and of the sub-cell children, ``wplanes32_tm``, when the
+    scene has the child tables) and the real cell counts of the cell and
+    super-cell tables."""
+    out = {"wplanes_tm": triangle_major(tl["wplanes"]),
+           "n_cells": real_cells(tl["bmin"]),
+           "n_super": real_cells(tl["sbmin"])}
+    if "bmin32" in tl:
+        k32 = tl["slot_to_prim"].shape[0] // tl["bmin32"].shape[0]
+        out["wplanes32_tm"] = triangle_major(tl["wplanes32"][:, :, :k32])
+    return out
 
 
 class Granules(NamedTuple):

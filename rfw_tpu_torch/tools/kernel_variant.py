@@ -1,0 +1,155 @@
+"""Time a variant of one kernel against the built one, on one card.
+
+    python3 -m rfw_tpu_torch.tools.kernel_variant KERNEL NAME=VALUE [...]
+
+Run from the repository root. KERNEL is ``enum``, ``expand`` or
+``tvisit``. The variant is a copy of ``csrc/`` in which each named
+``constexpr int NAME = ...;`` takes the given value (for example
+``enum kEnumCells=1``: one cell a thread; ``tvisit kTvisitRays=1``: one
+ray a thread; ``expand kExpandSlots=2``: two child slots a thread). The
+script builds both libraries, builds chip_smoke.py's 1080p slice scene
+(switched to the tvisit intersector for ``expand`` and ``tvisit``) and
+takes its phase-3 streams (a primary chunk and a bounce chunk). On each
+stream it holds each library's kernel to its plain version (equal; for
+``expand`` and ``tvisit`` on pass 0's parent window, tvisit on the plain
+expansion's lists, closest hit) and times them in alternation, built,
+variant, variant, built (CUDA events, median of 5 each). The last line
+is one JSON object with the times and both kernels' ptxas reports.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import sys
+import tempfile
+
+import torch
+
+from ..ops import cuda_lib
+
+KERNELS = ("enum", "expand", "tvisit")
+
+
+def variant_sources(consts: dict, out_dir: str) -> tuple:
+    """Copies of the kernel sources (and of their headers) with the named
+    constants replaced; each name must occur exactly once across the
+    sources."""
+    os.makedirs(out_dir, exist_ok=True)
+    for h in cuda_lib.headers():
+        shutil.copy(h, out_dir)
+    hits = dict.fromkeys(consts, 0)
+    paths = []
+    for src in cuda_lib.SOURCES:
+        with open(src) as f:
+            text = f.read()
+        for name, value in consts.items():
+            text, n = re.subn(rf"(constexpr int {name} = )[^;]+;",
+                              rf"\g<1>{value};", text)
+            hits[name] += n
+        path = os.path.join(out_dir, os.path.basename(src))
+        with open(path, "w") as f:
+            f.write(text)
+        paths.append(path)
+    bad = {k: n for k, n in hits.items() if n != 1}
+    if bad:
+        raise ValueError(f"constants not found exactly once: {bad}")
+    return tuple(paths)
+
+
+def _load(sources: tuple):
+    cuda_lib.SOURCES, cuda_lib._lib = sources, None
+    lib = cuda_lib.load()
+    return lib, cuda_lib.build_log
+
+
+def _equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _cases(kernel: str, rs, cfg, chip_smoke) -> dict:
+    """Per stream: (launch, plain result, note) for the named kernel."""
+    from ..ops import tvisit_intersect as tv
+    from ..ops import visit_intersect as vi
+    if kernel != "enum":
+        rs.set_setting("intersector", "tvisit")
+    scene, streams, _ = chip_smoke._streams(rs)
+    tl = scene["treelets"]
+    diag = vi.scene_diag(tl)
+    cases = {}
+    for name, (o, d, tm) in streams.items():
+        rays = vi._pack_rays(o, d, tm)
+        note = f"{int((tm > 0).sum())} live lanes"
+        if kernel == "enum":
+            g = vi._granularity(tl, cfg)
+            cases[name] = ((lambda r=rays, g=g: vi.block_entries(
+                r, g.bounds8, g.n_real)),
+                vi.block_entries_ref(rays, g.bounds8),
+                f"{note}, {g.n_real} real cells")
+            continue
+        ids, t_p = chip_smoke.pass0_window(tl, rays, diag)
+        bmin32, bmax32, wg32, wtm32, k32 = tv.child_tables(tl)
+        args = (ids, rays, bmin32, bmax32, diag, t_p)
+        lists = tv.expand_children_ref(*args)
+        if kernel == "expand":
+            cases[name] = ((lambda a=args: tv.expand_children(*a)), lists,
+                           f"{note}, {int((ids < t_p).sum())} valid parents")
+            continue
+        targs = (rays, *lists, wg32, wtm32, k32, float(cfg.t_epsilon),
+                 False)
+        cases[name] = ((lambda a=targs: tv.tvisit(*a)),
+                       tv.tvisit_ref(rays, *lists, wg32, k32,
+                                     float(cfg.t_epsilon), False),
+                       f"{note}, mean child list "
+                       f"{float(lists[1].float().mean()):.1f}")
+    return cases
+
+
+def main(argv) -> int:
+    if len(argv) < 2 or argv[0] not in KERNELS:
+        raise SystemExit(__doc__)
+    kernel = argv[0]
+    consts = dict(a.split("=", 1) for a in argv[1:])
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variant: no CUDA device")
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke
+    from ..config import RenderConfig
+    from ..system import RenderSystem
+
+    built = cuda_lib.SOURCES
+    libs, ptxas = {}, {}
+    for which, sources in (("built", built), ("variant", variant_sources(
+            consts, os.path.join(cuda_lib.BUILD_DIR, "variant_src")))):
+        libs[which], log = _load(sources)
+        ptxas[which] = chip_smoke.ptxas_report(log).get(f"{kernel}_kernel")
+        print(f"{which}: {kernel}_kernel ptxas {ptxas[which]}")
+
+    cuda_lib._lib = libs["built"]
+    cfg = RenderConfig()
+    rs = RenderSystem("wavefront", cfg, device="cuda")
+    with tempfile.TemporaryDirectory() as work:
+        chip_smoke.build_slice_scene(rs, work)
+        rs.synchronize()
+    times = {}
+    for name, (run, ref, note) in _cases(kernel, rs, cfg,
+                                         chip_smoke).items():
+        times[name] = {k: [] for k in libs}
+        for which in ("built", "variant", "variant", "built"):
+            cuda_lib._lib = libs[which]
+            chip_smoke._check(_equal(run(), ref),
+                              f"{which} {kernel} kernel != plain on {name}")
+            times[name][which].append(chip_smoke._median_ms(run))
+        print(f"{name}: {kernel} built {times[name]['built']} ms, variant "
+              f"{times[name]['variant']} ms ({note})")
+    print(json.dumps({"kernel": kernel, "variant": consts, "ms": times,
+                      "ptxas": ptxas}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,5 +1,6 @@
 """The port's own copies of rfw_tpu's host modules (config, camera,
-scene loaders, lights, the native BVH builder) against the originals.
+scene loaders, lights, the test sky, textures, the native BVH builder)
+against the originals.
 
 Both sides are numpy (or C++) on the same inputs, so equality is exact.
 The inputs are files and lights made from a numpy seed."""
@@ -18,12 +19,14 @@ import rfw_tpu.native as j_native
 import rfw_tpu.scene as j_scene
 import rfw_tpu.scene.lights as j_lights
 from rfw_tpu.bvh import builder as j_builder
+from rfw_tpu.scene import skybox as j_skybox
+from rfw_tpu.scene import texture as j_texture
 
 import chip_smoke
 import rfw_tpu_torch.scene as scene
 from rfw_tpu_torch import camera, config, native
 from rfw_tpu_torch.bvh import builder
-from rfw_tpu_torch.scene import lights
+from rfw_tpu_torch.scene import lights, skybox, texture
 
 
 def test_render_config_defaults_equal():
@@ -176,3 +179,51 @@ def test_native_bvh_build_equal():
         port = getattr(native, name)(bvh, *args)
         for a, b in zip(ref, port):
             assert np.array_equal(a, b), name
+
+
+def _assert_tables_equal(ref: dict, port: dict) -> None:
+    assert ref.keys() == port.keys()
+    for k in ref:
+        a, b = np.asarray(ref[k]), np.asarray(port[k])
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+
+
+@pytest.mark.parametrize("size", [(512, 256), (67, 33)],
+                         ids=["default", "odd"])
+def test_test_sky_equal(size):
+    """``Skybox.test_sky()`` (the 1080p slices' sky) and its device and
+    importance tables, pixel for pixel."""
+    ref, port = j_skybox.Skybox.test_sky(*size), skybox.Skybox.test_sky(*size)
+    assert port.pixels.shape == (size[1], size[0], 3)
+    assert port.pixels.dtype == ref.pixels.dtype
+    assert np.array_equal(port.pixels, ref.pixels)
+    _assert_tables_equal(ref.as_device(), port.as_device())
+    _assert_tables_equal(ref.build_importance_tables(),
+                         port.build_importance_tables())
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (48, 80)],
+                         ids=["square", "wide"])
+def test_texture_load_and_mips_equal(tmp_path, monkeypatch, shape):
+    """A seeded RGBA8 PNG through both ``Texture.load`` (sRGB to linear,
+    the 5-level box-filtered mip chain), a seeded float image through
+    ``Texture.from_array``, and the flat atlas of both. The sizes halve
+    evenly down the chain: both copies raise on a level of odd size."""
+    from PIL import Image
+    monkeypatch.setenv("RFW_NO_TEX_CACHE", "1")     # no cache under HOME
+    rng = np.random.default_rng(23)
+    path = str(tmp_path / "seeded.png")
+    Image.fromarray(rng.integers(0, 256, (*shape, 4), dtype=np.uint8),
+                    "RGBA").save(path)
+    base = rng.random((*shape, 3), dtype=np.float32)
+    pairs = [(j_texture.Texture.load(path), texture.Texture.load(path)),
+             (j_texture.Texture.from_array(base),
+              texture.Texture.from_array(base))]
+    for ref, port in pairs:
+        assert len(port.mips) == len(ref.mips) == texture.MIP_LEVEL_COUNT
+        assert port.mips[0].shape == (*shape, 4)
+        for a, b in zip(ref.mips, port.mips):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    _assert_tables_equal(
+        j_texture.build_texture_atlas([r for r, _ in pairs]),
+        texture.build_texture_atlas([p for _, p in pairs]))

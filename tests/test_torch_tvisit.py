@@ -124,11 +124,14 @@ def test_subcell_scene_matches_reference(soup):
 @pytest.fixture(scope="module", params=[128, 2], ids=["m_c128", "m_c2"])
 def first_window(soup, request):
     """Pass 0's parent window through both packages' child expansion, on
-    the same 1024 rays: (JAX inputs and lists, port inputs and lists)."""
+    the same 1024 rays and a fifth 256-ray block of dead lanes (whose
+    window holds only invalid parent slots): (JAX inputs and lists, port
+    inputs and lists, the port's expansion arguments)."""
     m_c = request.param
     _, _, _, ref = soup
     tl = ref["treelets"]
-    o, d, tm = _rays(1024)
+    o, d, tm = (np.concatenate(x) for x in zip(_rays(1024), _rays(256, 1)))
+    tm[1024:] = 0.0
     rays8 = jvi._pack_rays8(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm))
     wg, b8, _, _ = jvi._granularity(tl, j_config.RenderConfig())
     diag = jnp.sqrt(jnp.sum((tl["scene_hi"] - tl["scene_lo"]) ** 2))
@@ -139,33 +142,44 @@ def first_window(soup, request):
     j_lists = jtv.expand_children(ids, jnp.asarray(o), jnp.asarray(d),
                                   jnp.asarray(tm), tl["bmin32"], tl["bmax32"],
                                   diag, t_p)
-    p_lists = ptv.expand_children(
-        _torch(ids), torch.from_numpy(o), torch.from_numpy(d),
-        torch.from_numpy(tm), _torch(tl["bmin32"]), _torch(tl["bmax32"]),
-        _torch(diag), t_p)
     rays = pvi._pack_rays(torch.from_numpy(o), torch.from_numpy(d),
                           torch.from_numpy(tm))
-    return rays8, j_lists, rays, p_lists
+    p_args = (_torch(ids), rays, _torch(tl["bmin32"]), _torch(tl["bmax32"]),
+              _torch(diag), t_p)
+    p_lists = ptv.expand_children(*p_args)
+    return rays8, j_lists, rays, p_lists, p_args
 
 
 def test_expand_children_exact(first_window):
-    _, j_lists, _, p_lists = first_window
-    for name, a, b in zip(("cids", "counts", "tnears"), j_lists, p_lists):
+    """The wrapper on CPU tensors equals the plain version and rfw_tpu's
+    expansion, including invalid parent slots and a block of dead lanes
+    (whose sub-blocks get empty lists)."""
+    _, j_lists, _, p_lists, p_args = first_window
+    ref = ptv.expand_children_ref(*p_args)
+    for name, a, b, c in zip(("cids", "counts", "tnears"), j_lists, p_lists,
+                             ref):
         assert np.array_equal(np.asarray(a), b.numpy()), name
+        assert torch.equal(b, c), name
+    ids, t_p = p_args[0], p_args[-1]
+    assert bool((ids >= t_p).any()) and bool((ids < t_p).any())
     assert int(p_lists[1].max()) > 1
+    assert p_lists[1][8:].tolist() == [0, 0]           # the dead block
+    assert bool((p_lists[0][8:] == 4 * t_p).all())
+    assert bool((p_lists[2][8:] == ptv.BIG_T).all())
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_tvisit_plain_matches_pallas(soup, first_window, any_hit):
-    _, port, _, ref = soup
-    rays8, (cids, counts, tnears), rays, p_lists = first_window
+    scene, port, _, ref = soup
+    rays8, (cids, counts, tnears), rays, p_lists, _ = first_window
     wg32 = ref["treelets"]["wplanes32"]
     k32 = ref["treelets"]["slot_to_prim"].shape[0] // wg32.shape[0]
     t_j, s_j = jtv._run_tvisit_kernel(rays8, cids, counts, tnears, wg32, k32,
                                       J_CFG.t_epsilon, any_hit)
     t_t, s_t = ptv.tvisit(rays, *p_lists,
                           torch.from_numpy(port["treelets"]["wplanes32"]),
-                          k32, CFG.t_epsilon, any_hit)
+                          scene["treelets"]["wplanes32_tm"], k32,
+                          CFG.t_epsilon, any_hit)
     t_j, s_j, t_t, s_t = np.asarray(t_j), np.asarray(s_j), t_t.numpy(), \
         s_t.numpy()
     assert ((s_j >= 0) == (s_t >= 0)).all()
@@ -301,5 +315,73 @@ def test_missing_child_tables_raise(soup):
                                      device="meta"),
                    torch.zeros(2, dtype=torch.int32, device="meta"),
                    torch.zeros((2, 8), device="meta"),
-                   torch.zeros((4, 16, 128), device="meta"), 32, 1e-4,
+                   torch.zeros((4, 16, 128), device="meta"),
+                   torch.zeros((4, 32, 12), device="meta"), 32, 1e-4,
                    False)
+    with pytest.raises(RuntimeError, match="no visit-list kernels"):
+        ptv.expand_children(torch.zeros((1, 2), dtype=torch.int32,
+                                        device="meta"), rays,
+                            torch.zeros((8, 3), device="meta"),
+                            torch.zeros((8, 3), device="meta"),
+                            torch.zeros((), device="meta"), 2)
+
+
+def test_walked_is_kernel_only(soup, first_window):
+    """``walked=`` is filled by the kernel alone: on CPU tensors the
+    wrapper raises instead of running the plain version without it."""
+    scene = soup[0]
+    _, _, rays, (cids, counts, tnears), _ = first_window
+    tl = scene["treelets"]
+    _, _, wg32, wtm32, k32 = ptv.child_tables(tl)
+    walked = torch.zeros(cids.shape[0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="kernel only"):
+        ptv.tvisit(rays, cids, counts, tnears, wg32, wtm32, k32,
+                   CFG.t_epsilon, False, walked=walked)
+
+
+@pytest.mark.parametrize("subcell", [True, False], ids=["on", "off"])
+def test_triangle_major_child_planes(soup, subcell):
+    """``wplanes32_tm`` is rows 0-11 of ``wplanes32[:, :, :k32]``, one
+    triangle's 12 floats after another, and exists exactly when the scene
+    has the child tables."""
+    if subcell:
+        tl = soup[0]["treelets"]
+    else:
+        tl = scene_data.scene_to_torch(scene_data.build_device_scene(
+            [_instance(scene_data, build_triangles, _soup_verts())], None,
+            None, None, RenderConfig()), "cpu")["treelets"]
+    assert ("wplanes32_tm" in tl) == ("bmin32" in tl) == subcell
+    if not subcell:
+        return
+    wp = tl["wplanes32"].numpy()
+    k32 = tl["slot_to_prim"].shape[0] // wp.shape[0]
+    assert k32 == 32 and wp.shape[2] == 128
+    got = tl["wplanes32_tm"]
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert np.array_equal(got.numpy(),
+                          wp[:, :12, :k32].transpose(0, 2, 1))
+    assert np.array_equal(got[-1, 7].numpy(), wp[-1, :12, 7])
+
+
+@pytest.mark.parametrize(
+    "qmax", [(1 << (24 - pvi._cid_bits(4096))) - 1,
+             (1 << (24 - pvi._cid_bits(1024))) - 1,
+             ptv._slot_bits(4 * ptv.M_C)[1]],
+    ids=["cells4096", "cells1024", "children"])
+def test_quant_gran_is_the_ieee_quotient(soup, qmax):
+    """``quant_gran`` (the keys' step, diag / qmax) is numpy's IEEE
+    float32 quotient for the cell keys' and the child keys' qmax. The
+    seeded diagonals include some where a multiply by the reciprocal,
+    what the card makes of a tensor divided by a Python number, is off by
+    an ulp."""
+    diags = np.concatenate([
+        np.random.default_rng(17).uniform(1.0, 200.0, 4096),
+        [float(pvi.scene_diag(soup[0]["treelets"])), 1.0, 1e-3]]).astype(
+            np.float32)
+    want = diags / np.float32(qmax)
+    got = np.array([pvi.quant_gran(qmax, torch.tensor(d)).item()
+                    for d in diags[-3:]], np.float32)
+    got = np.concatenate([pvi.quant_gran(qmax, torch.from_numpy(
+        diags[:-3])).numpy(), got])
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert (diags * (np.float32(1.0) / np.float32(qmax)) != want).any()

@@ -374,19 +374,24 @@ def test_dead_lanes_enter_no_cell(soup):
     assert bool((ents[0][[0, 2, 3]] < 1e30).any())
 
 
-def test_enum_variant_sources(tmp_path):
-    """The enum A/B script's variant copies replace exactly the named
-    constant and refuse a name the sources lack."""
-    from rfw_tpu_torch.tools import enum_variant
-    paths = enum_variant.variant_sources({"kEnumCells": "1"},
-                                         str(tmp_path))
+@pytest.mark.parametrize("const", ["kEnumCells", "kExpandSlots",
+                                   "kTvisitRays"])
+def test_enum_variant_sources(tmp_path, const):
+    """The kernel A/B script's variant copies replace exactly the named
+    constant (of the enum, expansion or tvisit kernel), carry the shared
+    headers beside them, and refuse a name the sources lack."""
+    from rfw_tpu_torch.tools import kernel_variant
+    paths = kernel_variant.variant_sources({const: "1"}, str(tmp_path))
     texts = [pathlib.Path(p).read_text() for p in paths]
-    assert sum(t.count("constexpr int kEnumCells = 1;") for t in texts) == 1
-    assert sum(t.count("kEnumCells") for t in texts) == sum(
-        pathlib.Path(p).read_text().count("kEnumCells")
-        for p in enum_variant.cuda_lib.SOURCES)
+    assert sum(t.count(f"constexpr int {const} = 1;") for t in texts) == 1
+    assert sum(t.count(const) for t in texts) == sum(
+        pathlib.Path(p).read_text().count(const)
+        for p in kernel_variant.cuda_lib.SOURCES)
+    headers = kernel_variant.cuda_lib.headers()
+    assert headers and all((tmp_path / pathlib.Path(h).name).read_text()
+                           == pathlib.Path(h).read_text() for h in headers)
     with pytest.raises(ValueError, match="kNoSuch"):
-        enum_variant.variant_sources({"kNoSuch": "2"}, str(tmp_path))
+        kernel_variant.variant_sources({"kNoSuch": "2"}, str(tmp_path))
 
 
 def test_real_cells_rejects_reachable_padding():
