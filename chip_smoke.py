@@ -27,17 +27,28 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    (cids, counts and tnears equal) and tvisit against tvisit_ref on the
    kernel's own lists (t and slot equal, closest and any-hit), timed and
    bounded as above;
-4. renders the config-2 Cornell scene (64², 8 spp, compacted driver)
-   on the card through the visit and the tvisit intersectors and holds
-   both to tests/golden/config2_64_8spp.npy (RMSE < 2e-3, the golden
-   matrix's bar);
+4. renders the config-2 Cornell scene and the config-3 scene
+   (microfacet BSDF, a checker-textured floor through the merged
+   material atlas, envmap importance sampling; 64², 8 spp, compacted
+   driver) on the card through the visit and the tvisit intersectors and
+   holds them to tests/golden/config{2,3}_64_8spp.npy (RMSE < 2e-3, the
+   golden matrix's bar);
 5. the visit slice at full size: RenderSystem("wavefront") at 1920x1080
-   on a generated ~317k-triangle scene loaded through add_object (PLY),
-   one warm-up sample, then 3 CONVERGE windows of 4 samples; kernel
-   launch counters are reset just before the windows and must grow;
+   on a generated ~317k-triangle scene loaded through add_object (PLY,
+   with texture coordinates that no untextured material reads), one
+   warm-up sample, then 3 CONVERGE windows of 4 samples; kernel launch
+   counters are reset just before the windows and must grow; then one
+   profile_stages frame gives the per-depth split;
 6. the tvisit slice: the same scene, camera and samples after the
    switch; the expand, tvisit, visit and enum counters must all grow,
-   and the frame must lie within RMSE 2e-3 of phase 5's.
+   and the frame must lie within RMSE 2e-3 of phase 5's;
+7. the textured slice: the same geometry on a new RenderSystem with the
+   microfacet BSDF, eight sphere materials and one room material each
+   binding 1024² diffuse, normal and metallic-roughness maps made from
+   SEED, shaded through the merged material atlas (its bytes printed)
+   with one stochastic texel a hit; timed as phase 5, with its build
+   times, its per-depth split, a finite non-black frame, and enum and
+   visit launched.
 
 Any failure raises (non-zero exit, no result). Two lines before the
 last is the kernel table as JSON, then the card's name and power limit;
@@ -132,13 +143,18 @@ def _grid(origin, du, dv, n: int):
     return pos, np.broadcast_to(nrm, pos.shape), faces
 
 
-def _write_ply(path, pos, nrm, faces):
+def _write_ply(path, pos, nrm, faces, uv=None):
+    """Binary PLY of positions, normals and, given ``uv``, texture
+    coordinates (properties u, v)."""
+    props = ["x", "y", "z", "nx", "ny", "nz"] + (["u", "v"] if uv is not None
+                                                  else [])
     header = (f"ply\nformat binary_little_endian 1.0\n"
-              f"element vertex {len(pos)}\nproperty float x\nproperty float y\n"
-              f"property float z\nproperty float nx\nproperty float ny\n"
-              f"property float nz\nelement face {len(faces)}\n"
+              f"element vertex {len(pos)}\n"
+              + "".join(f"property float {p}\n" for p in props)
+              + f"element face {len(faces)}\n"
               f"property list uchar int vertex_indices\nend_header\n")
-    vert = np.concatenate([pos, nrm], axis=1).astype("<f4")
+    cols = [pos, nrm] + ([uv] if uv is not None else [])
+    vert = np.concatenate(cols, axis=1).astype("<f4")
     face = np.zeros(len(faces), dtype=[("n", "u1"), ("i", "<i4", (3,))])
     face["n"] = 3
     face["i"] = faces
@@ -148,27 +164,56 @@ def _write_ply(path, pos, nrm, faces):
         f.write(face.tobytes())
 
 
-def build_slice_scene(rs, workdir: str) -> int:
+def _sphere_uv(unit):
+    """Spherical projection of unit-sphere vertices."""
+    u = 0.5 + np.arctan2(unit[:, 2], unit[:, 0]) / (2.0 * np.pi)
+    v = np.arccos(np.clip(unit[:, 1], -1.0, 1.0)) / np.pi
+    return np.stack([u, v], axis=1).astype(np.float32)
+
+
+def _planar_uv(pos, nrm, tile: float = 4.0):
+    """Planar projection along each vertex's dominant normal axis, one
+    texture repeat every ``tile`` units."""
+    axis = np.abs(nrm).argmax(axis=1)
+    keep = np.array([[1, 2], [0, 2], [0, 1]])[axis]
+    return (np.take_along_axis(pos, keep, axis=1) / tile).astype(np.float32)
+
+
+N_SPHERE_MATERIALS = 8
+
+
+def build_slice_scene(rs, workdir: str, materials=None) -> int:
     """A stand-in for the reference bench's pica-4x scene (~305k
     triangles of closed surfaces, absent here): 60 level-4 icospheres on
     a floor, two walls, the bench's lamp quad and test sky. The spheres
-    and the room are written as binary PLY and loaded with add_object,
-    the loader path users take. Deterministic from SEED."""
+    and the room are written as binary PLY with texture coordinates and
+    loaded with add_object, the loader path users take. Deterministic
+    from SEED. ``materials`` = (sphere material ids, room material id)
+    gives sphere i material ``i % len(sphere ids)``, one PLY per sphere
+    material; without it, one untextured material each."""
     from rfw_tpu_torch.scene import Skybox
     rng = np.random.default_rng(SEED)
     sv, sf = _icosphere(4)
-    pos, nrm, faces = [], [], []
+    spheres = []
     for ix in range(10):
         for iz in range(6):
             r = rng.uniform(0.7, 1.1)
             c = np.array([(ix - 4.5) * 2.5, r, (iz - 2.5) * 2.5])
             c[[0, 2]] += rng.uniform(-0.3, 0.3, 2)
-            faces.append(sf + sum(len(p) for p in pos))
-            pos.append(sv * r + c)
-            nrm.append(sv)
-    sphere_ply = os.path.join(workdir, "spheres.ply")
-    _write_ply(sphere_ply, np.concatenate(pos), np.concatenate(nrm),
-               np.concatenate(faces))
+            spheres.append(sv * r + c)
+    if materials is None:
+        materials = ([rs.add_material([0.8, 0.75, 0.7], roughness=0.35,
+                                      metallic=0.2)],
+                     rs.add_material([0.6, 0.62, 0.65]))
+    sphere_m, room_m = materials
+    for g, mat in enumerate(sphere_m):
+        group = spheres[g::len(sphere_m)]
+        path = os.path.join(workdir, f"spheres{g}.ply")
+        _write_ply(path, np.concatenate(group), np.tile(sv, (len(group), 1)),
+                   np.concatenate([sf + i * len(sv)
+                                   for i in range(len(group))]),
+                   np.tile(_sphere_uv(sv), (len(group), 1)))
+        rs.add_instance(rs.add_object(path, material_override=mat))
     room = [_grid([-20, 0, -20], np.float32([0, 0, 40]),
                   np.float32([40, 0, 0]), 40),                   # floor
             _grid([-20, 0, 15], np.float32([40, 0, 0]),
@@ -177,13 +222,11 @@ def build_slice_scene(rs, workdir: str) -> int:
                   np.float32([0, 0, 40]), 40)]                   # left wall
     room_ply = os.path.join(workdir, "room.ply")
     off = np.cumsum([0] + [len(p) for p, _, _ in room])
-    _write_ply(room_ply, np.concatenate([p for p, _, _ in room]),
-               np.concatenate([n for _, n, _ in room]),
-               np.concatenate([f + o for (_, _, f), o in zip(room, off)]))
-    spheres_m = rs.add_material([0.8, 0.75, 0.7], roughness=0.35,
-                                metallic=0.2)
-    room_m = rs.add_material([0.6, 0.62, 0.65])
-    rs.add_instance(rs.add_object(sphere_ply, material_override=spheres_m))
+    pos = np.concatenate([p for p, _, _ in room])
+    nrm = np.concatenate([n for _, n, _ in room])
+    _write_ply(room_ply, pos, nrm,
+               np.concatenate([f + o for (_, _, f), o in zip(room, off)]),
+               _planar_uv(pos, nrm))
     rs.add_instance(rs.add_object(room_ply, material_override=room_m))
     lamp = rs.add_material([40.0, 40.0, 40.0])
     rs.add_instance(rs.add_quad([0, -1, 0], [0, 18.0, 0], 6, 6, lamp))
@@ -191,7 +234,35 @@ def build_slice_scene(rs, workdir: str) -> int:
     rs.camera.resize(1920, 1080)
     rs.camera.fov = 60.0
     rs.camera.look_at([0.0, 12.0, -22.0], [0.0, 1.0, 2.0])
-    return sum(len(f) for f in faces) + sum(len(f) for _, _, f in room) + 2
+    return len(spheres) * len(sf) + sum(len(f) for _, _, f in room) + 2
+
+
+def slice_materials(rs, size: int = 1024):
+    """Eight sphere materials and one room material, each binding a
+    diffuse, a tangent-space normal and a metallic-roughness map of
+    ``size``² made from SEED (texel noise: every fetch lands on its own
+    texel). Returns (sphere material ids, room material id)."""
+    from rfw_tpu_torch.scene import HostMaterial, Texture
+    rng = np.random.default_rng(SEED + 1)
+
+    def textured(tint, roughness, metallic):
+        diffuse = (0.5 * np.asarray(tint, np.float32)
+                   + 0.5 * rng.random((size, size, 3), np.float32))
+        tilt = rng.normal(0.0, 0.25, (size, size, 2)).astype(np.float32)
+        nrm = np.concatenate([tilt, np.ones((size, size, 1), np.float32)], -1)
+        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        mr = np.stack([np.zeros((size, size), np.float32),
+                       rng.uniform(0.2, 1.0, (size, size)).astype(np.float32),
+                       rng.random((size, size), np.float32)], -1)
+        mat = HostMaterial(roughness=roughness, metallic=metallic)
+        for slot, img in ((0, diffuse), (1, 0.5 * nrm + 0.5), (3, mr)):
+            mat.maps[slot].texture_id = rs.materials.add_texture(
+                Texture.from_array(img))
+        return rs.materials.add(mat)
+
+    spheres = [textured(rng.uniform(0.2, 0.9, 3), 0.35, 0.6)
+               for _ in range(N_SPHERE_MATERIALS)]
+    return spheres, textured([0.6, 0.62, 0.65], 0.8, 0.2)
 
 
 def make_config2(rs):
@@ -216,6 +287,37 @@ def make_config2(rs):
     rs.camera.resize(64, 64)
     rs.camera.fov = 40.0
     rs.camera.look_at([0, 2.73, -8.0], [0, 2.73, 0])
+    return rs
+
+
+def config3(**kw):
+    """tests/golden_scenes.py::make_config3's RenderConfig: microfacet
+    BSDF, envmap importance sampling at every depth, blue noise."""
+    from rfw_tpu_torch.config import RenderConfig
+    return RenderConfig(blue_noise=True, max_path_length=2, bsdf="microfacet",
+                        envmap_nee=True, envmap_nee_max_depth=-1,
+                        env_nee_interleave=0, **kw)
+
+
+def make_config3(rs):
+    """tests/golden_scenes.py::make_config3's scene, through the port: a
+    checker-textured floor, a shiny quad and the test sky."""
+    from rfw_tpu_torch.scene import HostMaterial, Skybox, Texture
+    checker = np.indices((32, 32)).sum(0) % 2
+    tex = Texture.from_array(np.stack(
+        [checker * 0.7 + 0.15, checker * 0.5 + 0.2, 0.6 - checker * 0.3,
+         np.ones((32, 32))], -1).astype(np.float32))
+    tid = rs.materials.add_texture(tex)
+    floor_mat = HostMaterial(name="floor", roughness=0.35, metallic=0.1)
+    floor_mat.maps[0].texture_id = tid
+    floor = rs.materials.add(floor_mat)
+    shiny = rs.add_material([0.9, 0.7, 0.3], roughness=0.12, metallic=0.9)
+    rs.add_instance(rs.add_quad([0, 1, 0], [0, 0, 0], 10, 10, floor))
+    rs.add_instance(rs.add_quad([0, 0, -1], [0, 1.2, 2.0], 2.5, 2.4, shiny))
+    rs.set_skybox(Skybox.test_sky(128, 64))
+    rs.camera.resize(64, 64)
+    rs.camera.fov = 50.0
+    rs.camera.look_at([0, 2.2, -5.5], [0, 1.0, 0.0])
     return rs
 
 
@@ -432,22 +534,30 @@ def phase_kernels(rs, cfg, ptxas):
 
 
 def phase_golden():
+    """The config-2 and config-3 golden frames on the card, through visit
+    and through tvisit."""
     from rfw_tpu_torch.config import RenderConfig
     from rfw_tpu_torch.system import RenderSystem
-    golden = np.load(os.path.join(ROOT, "tests", "golden",
-                                  "config2_64_8spp.npy")).astype(np.float32)
-    for name in ("visit", "tvisit"):
-        cfg = RenderConfig(blue_noise=True, max_path_length=3,
-                           max_rays_per_pass=1024)
-        rs = make_config2(RenderSystem("wavefront", cfg, device="cuda"))
-        rs.set_setting("intersector", name)
-        img = rs.render_frame(samples=8)
-        rmse = _rmse(img, golden)
-        print(f"phase 4: config2 64x64 8 spp on the card, {name}: RMSE vs "
-              f"golden {rmse:.6g} (bar 2e-3), mean {float(img.mean()):.6g}")
-        _check(img.shape == (64, 64, 3) and bool(np.isfinite(img).all()),
-               f"config-2 {name} frame not finite or misshapen")
-        _check(rmse < 2e-3, f"config-2 {name} frame RMSE {rmse} >= 2e-3")
+    cases = (("config2", make_config2,
+              lambda: RenderConfig(blue_noise=True, max_path_length=3,
+                                   max_rays_per_pass=1024)),
+             ("config3", make_config3,
+              lambda: config3(max_rays_per_pass=1024)))
+    for label, make, cfg in cases:
+        golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                      f"{label}_64_8spp.npy")).astype(
+                                          np.float32)
+        for name in ("visit", "tvisit"):
+            rs = make(RenderSystem("wavefront", cfg(), device="cuda"))
+            rs.set_setting("intersector", name)
+            img = rs.render_frame(samples=8)
+            rmse = _rmse(img, golden)
+            print(f"phase 4: {label} 64x64 8 spp on the card, {name}: RMSE "
+                  f"vs golden {rmse:.6g} (bar 2e-3), mean "
+                  f"{float(img.mean()):.6g}")
+            _check(img.shape == (64, 64, 3) and bool(np.isfinite(img).all()),
+                   f"{label} {name} frame not finite or misshapen")
+            _check(rmse < 2e-3, f"{label} {name} frame RMSE {rmse} >= 2e-3")
 
 
 def pass0_window(tl, rays, diag):
@@ -636,6 +746,83 @@ def phase_slice(rs, n_tris, label, png, profile, must_launch):
     return launches, frame
 
 
+def phase_depth_split(rs, label):
+    """One CONVERGE frame of 2 samples with ``profile_stages``: its last
+    sample syncs after each depth and RenderStats holds the split."""
+    from rfw_tpu_torch.render import RenderStatus
+    object.__setattr__(rs.config, "profile_stages", True)
+    try:
+        t0 = time.perf_counter()
+        rs.render_frame(status=RenderStatus.CONVERGE, samples=2)
+        wall = (time.perf_counter() - t0) * 1000.0
+    finally:
+        object.__setattr__(rs.config, "profile_stages", False)
+    st = rs.get_render_stats()
+    split = [st.primary_time * 1e3, st.secondary_time * 1e3,
+             st.deep_time * 1e3]
+    print(f"{label}: per-depth split of a profiled sample (depth 0 with "
+          f"ray generation, depth 1, depths >= 2; each with the compaction "
+          f"after it): {split[0]:.1f}, {split[1]:.1f}, {split[2]:.1f} ms, "
+          f"sum {sum(split):.1f} ms; the 2-sample frame took {wall:.1f} ms")
+    _check(st.primary_time > 0 and st.secondary_time > 0,
+           f"{label}: profile_stages filled no per-depth times")
+    return split
+
+
+def phase_textured(png, profile):
+    """Phase 7: the textured 1080p slice on a RenderSystem of its own
+    (microfacet BSDF, stochastic merged-atlas fetches)."""
+    import torch
+    import rfw_tpu_torch.system as system_mod
+    from rfw_tpu_torch.config import RenderConfig
+    from rfw_tpu_torch.system import RenderSystem
+    rs = RenderSystem("wavefront", RenderConfig(bsdf="microfacet"),
+                      device="cuda")
+    cfg = rs.config
+    _check(cfg.texture_filter == "stochastic"
+           and cfg.merged_material_atlas, "phase 7 config is not the default")
+    t0 = time.perf_counter()
+    mats = slice_materials(rs)
+    t_tex = time.perf_counter() - t0
+    atlas_s = []
+    build = system_mod.build_atlases_cached
+
+    def timed_build(*args, **kw):
+        t = time.perf_counter()
+        out = build(*args, **kw)
+        atlas_s.append(time.perf_counter() - t)
+        return out
+
+    system_mod.build_atlases_cached = timed_build
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            t0 = time.perf_counter()
+            n_tris = build_slice_scene(rs, work, mats)
+            rs.synchronize()
+            t_scene = time.perf_counter() - t0
+    finally:
+        system_mod.build_atlases_cached = build
+    scene = rs.context._scene
+    _check(scene.get("matlas") is not None
+           and scene["matlas"].dtype == torch.int32
+           and scene["atlas"].shape == (1, 4),
+           "phase 7 scene did not take the merged material atlas")
+    matlas_b = scene["matlas"].numel() * 4
+    tex0 = rs.materials.textures[0]
+    print(f"phase 7: {len(rs.materials.textures)} textures of "
+          f"{tex0.width}x{tex0.height} made in {t_tex:.1f} s; scene of "
+          f"{n_tris} triangles, {len(rs.materials.materials)} materials "
+          f"loaded and built in "
+          f"{t_scene:.1f} s, of which the atlases {sum(atlas_s):.1f} s; "
+          f"merged atlas on the card {matlas_b} B "
+          f"({matlas_b / 2**20:.1f} MiB, {scene['matlas'].shape[0]} texels "
+          f"of 3 words), flat atlas a {tuple(scene['atlas'].shape)} stub")
+    launches, frame = phase_slice(rs, n_tris, "phase 7", png, profile,
+                                  ("enum", "visit"))
+    split = phase_depth_split(rs, "phase 7")
+    return launches, frame, split
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--png", help="write the tonemapped 1080p frame here")
@@ -648,6 +835,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is false)")
+    # every run builds the texture atlases cold and writes no cache
+    os.environ["RFW_NO_TEX_CACHE"] = "1"
     sys.path.insert(0, ROOT)
     from rfw_tpu_torch.config import RenderConfig
     from rfw_tpu_torch.ops import cuda_lib
@@ -686,6 +875,7 @@ def main() -> int:
     phase_golden()
     launches, frame_visit = phase_slice(rs, n_tris, "phase 5", args.png,
                                         args.profile, ("enum", "visit"))
+    phase_depth_split(rs, "phase 5")
     t0 = time.perf_counter()
     rs.set_setting("intersector", "tvisit")
     report.update(phase_tvisit_kernel(rs, cfg, ptxas))
@@ -702,6 +892,11 @@ def main() -> int:
           f"(bar 2e-3), max abs difference {diff:.6g}")
     _check(rmse < 2e-3, f"tvisit slice frame RMSE {rmse} >= 2e-3")
     launches.update(expand=launches_t["expand"], tvisit=launches_t["tvisit"])
+    del rs                    # phase 7's peak memory is its scene's alone
+    torch.cuda.empty_cache()
+    png7 = args.png and os.path.splitext(args.png)[0] + "_textured.png"
+    launches_7, _, _ = phase_textured(png7, args.profile)
+    print(f"phase 7: launches on the textured slice {launches_7}")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
     # no single PyTorch call computes any of the four functions

@@ -1,14 +1,16 @@
-"""BSDF library. The port has the default Disney model so far."""
+"""BSDF library (torch port of ``rfw_tpu.ops.bsdf``): the Disney model
+by default, Lambert, GGX microfacet and the multiple-scattering
+microsurface as alternatives (``RenderConfig.bsdf``)."""
 
-from . import common, disney
+from . import common, disney, lambert, microfacet, microsurface
+
+_REGISTRY = {"disney": disney, "lambert": lambert,
+             "microfacet": microfacet, "microsurface": microsurface}
 
 
 def get(name: str):
-    if name != "disney":
-        raise NotImplementedError(
-            f"BSDF {name!r} is not ported to rfw_tpu_torch yet; lambert, "
-            "microfacet and microsurface come later (ROADMAP.md, Queue 1)")
-    return disney
+    return _REGISTRY[name]
 
 
-__all__ = ["common", "disney", "get"]
+__all__ = ["common", "disney", "lambert", "microfacet", "microsurface",
+           "get"]

@@ -35,3 +35,20 @@ def log(x):
 
 def exp(x):
     return torch.exp(x.double()).float()
+
+
+def log2(x):
+    return torch.log2(x.double()).float()
+
+
+def pow(x, y):
+    return torch.pow(x.double(), y.double() if torch.is_tensor(y)
+                     else float(y)).float()
+
+
+def erf(x):
+    return torch.erf(x.double()).float()
+
+
+def erfinv(x):
+    return torch.erfinv(x.double()).float()

@@ -88,6 +88,9 @@ class EngineContext:
     def set_materials(self, device_materials: dict[str, np.ndarray]) -> None:
         raise NotImplementedError
 
+    def set_textures(self, atlas: dict[str, np.ndarray]) -> None:
+        raise NotImplementedError
+
     def set_lights(self, lights: dict[str, np.ndarray],
                    overrides=None) -> None:
         raise NotImplementedError

@@ -58,6 +58,8 @@ class PathTracerEngine(EngineContext):
         self._lights: dict | None = None
         self._light_overrides: dict = {}
         self._skybox: dict | None = None
+        self._atlas: dict | None = None
+        self._atlas_t: dict | None = None
         self._dirty = True
         self._scene: dict | None = None
         self._geo = None
@@ -93,6 +95,14 @@ class PathTracerEngine(EngineContext):
 
     def set_materials(self, device_materials) -> None:
         self._materials = device_materials
+        self._atlas_t = None      # mtex_id decides which atlas ships
+        self._dirty = True
+
+    def set_textures(self, atlas) -> None:
+        """The texture atlas dict of ``scene.texture.build_atlases_cached``
+        ({"atlas", "desc"}, with {"matlas", "matlas_desc"} when merged)."""
+        self._atlas = atlas
+        self._atlas_t = None
         self._dirty = True
 
     def set_lights(self, lights, overrides=None) -> None:
@@ -148,10 +158,10 @@ class PathTracerEngine(EngineContext):
         if geo_key != self._geo_key:
             timer = Timer()
             geo = scene_data.build_device_scene(
-                instances, None, None, None, self.config,
+                instances, None, None, None, None, self.config,
                 area_light_overrides=self._light_overrides,
                 shape_caps=self._shape_caps)
-            for k in ("materials", "lights"):
+            for k in ("materials", "lights", "atlas", "atlas_desc"):
                 geo.pop(k)
             self._geo = scene_data.scene_to_torch(geo, self.device)
             self._geo_key = geo_key
@@ -162,13 +172,34 @@ class PathTracerEngine(EngineContext):
             aux["skybox"] = self._skybox
         if self.config.blue_noise:
             aux["blue_noise"] = blue_noise_stack()
-        self._scene = {**self._geo,
+        self._scene = {**self._geo, **self._textures(),
                        **scene_data.scene_to_torch(aux, self.device)}
         self._dirty = False
         # scene changed: restart accumulation (a CONVERGE frame must not
         # divide the old scene's radiance by the restarted count)
         self._sample_count = 0
         self._accumulator = None
+
+    def _textures(self) -> dict:
+        """The atlas tables on the device, uploaded once per
+        ``set_textures``. The merged atlas (``matlas``) is read only
+        through the per-material ``mtex_id`` table: with it, every fetch
+        reads the merged atlas and the flat one ships as a 1-texel stub;
+        without it, the merged atlas is dropped so that shading reads the
+        real flat atlas (a stub beside real descriptors would fetch
+        garbage)."""
+        if self._atlas is None:
+            return {"atlas": None, "atlas_desc": None}
+        if self._atlas_t is None:
+            a = self._atlas
+            t = {"atlas": a["atlas"], "atlas_desc": a["desc"]}
+            if a.get("matlas") is not None:
+                if "mtex_id" in (self._materials or {}):
+                    t.update(atlas=np.ones((1, 4), np.float32),
+                             matlas=a["matlas"],
+                             matlas_desc=a["matlas_desc"])
+            self._atlas_t = scene_data.scene_to_torch(t, self.device)
+        return self._atlas_t
 
     # -- render --------------------------------------------------------------
 
@@ -246,8 +277,20 @@ class PathTracerEngine(EngineContext):
                   for k, v in view.items()}
         probe_index = self._probe_xy[1] * width + self._probe_xy[0]
         timer = Timer()
-        if self._driver is not None:
-            acc, probe, stats = self._driver.step_multi(
+        drv = self._driver
+        profiled = (drv is not None and samples > 1
+                    and self.config.profile_stages)
+        if profiled:
+            # the last sample runs with a sync per depth, which fills the
+            # per-stage times of RenderStats; the frame is the same
+            acc, probe, stats = drv.step_multi(
+                self._scene, self._accumulator, view_t, self._sample_count,
+                probe_index, samples - 1)
+            acc, probe, stats = drv.step_profiled(
+                self._scene, acc, view_t, self._sample_count + samples - 1,
+                probe_index)
+        elif drv is not None:
+            acc, probe, stats = drv.step_multi(
                 self._scene, self._accumulator, view_t, self._sample_count,
                 probe_index, samples)
         else:
@@ -257,14 +300,14 @@ class PathTracerEngine(EngineContext):
                                          self._sample_count + s, probe_index)
         self._accumulator = acc
         self._sample_count += samples
-        self._pending = (probe, stats, timer)
+        self._pending = (probe, stats, timer, profiled)
 
     def finish_frame(self) -> np.ndarray:
         """Wait for the dispatched frame, fill stats, return resolved HDR
         (H, W, 3) as numpy."""
         if self._pending is None:
             raise RuntimeError("finish_frame without a frame in flight")
-        probe, stats, timer = self._pending
+        probe, stats, timer, profiled = self._pending
         self._pending = None
         _sync(self.device)
         elapsed = timer.elapsed()
@@ -281,6 +324,11 @@ class PathTracerEngine(EngineContext):
         self.stats.shadow_count = sum(
             v for k, v in s.items() if k.startswith("shadow_count_"))
         self.stats.render_time = elapsed
+        if profiled:
+            dt = self._driver.depth_times
+            self.stats.primary_time = dt[0]
+            self.stats.secondary_time = dt[1] if len(dt) > 1 else 0.0
+            self.stats.deep_time = sum(dt[2:])
         nan_ct = sum(v for k, v in s.items() if k.startswith("nan_scrubbed"))
         if nan_ct:
             logger.warning("debug_checks: %d NaN contributions scrubbed "

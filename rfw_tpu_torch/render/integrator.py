@@ -197,8 +197,16 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
     prim_safe = torch.clamp(prim, min=0).long()
 
     hit_pos = origin + direction * t[..., None]
+    cone_width = view["spread_angle"] * t
+    stoch_seed = None
+    if config.texture_filter == "stochastic" and (
+            tex_flags is None or any(tex_flags.values())):
+        # a salted stream of its own for the one-tap texture fetches
+        stoch_seed = rng.wang_hash(rng.path_seed(pid_l, sample_index, depth)
+                                   ^ 0x7FEB352D)
     sd, n_geom, i_n, t_vec, b_vec, alpha_cut = get_shading_data(
-        scene, prim_safe, u, v, tex_flags=tex_flags)
+        scene, prim_safe, u, v, direction, cone_width, tex_flags=tex_flags,
+        tex_filter=config.texture_filter, stoch_seed=stoch_seed)
     alpha_cut = alpha_cut & alive
 
     if depth == 0:

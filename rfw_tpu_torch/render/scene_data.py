@@ -147,15 +147,17 @@ def build_device_scene(
     materials: dict[str, np.ndarray],
     lights: dict[str, np.ndarray],
     skybox: dict[str, np.ndarray] | None,
+    atlas: dict[str, np.ndarray] | None,
     config: RenderConfig,
     area_light_overrides: dict[tuple[int, int], int] | None = None,
     shape_caps: dict | None = None,
 ) -> dict:
     """Assemble the flat scene as a dict of numpy arrays.
 
-    ``area_light_overrides`` maps (instance_id, mesh-local tri index) →
-    area-light index. ``shape_caps`` (engine-held, updated here) keeps
-    padded sizes from shrinking between rebuilds."""
+    ``atlas`` is ``scene.texture.build_atlases_cached``'s dict (or
+    None). ``area_light_overrides`` maps (instance_id, mesh-local tri
+    index) → area-light index. ``shape_caps`` (engine-held, updated here)
+    keeps padded sizes from shrinking between rebuilds."""
     if not instances:
         raise ValueError("cannot build an empty scene")
     if config.use_tlas:
@@ -285,6 +287,15 @@ def build_device_scene(
             {"bmin32": bmin32, "bmax32": bmax32, "wplanes32": wp32})
     if skybox is not None:
         scene["skybox"] = skybox
+    if atlas is not None:
+        scene["atlas"] = atlas["atlas"]
+        scene["atlas_desc"] = atlas["desc"]
+        if "matlas" in atlas:
+            scene["matlas"] = atlas["matlas"]
+            scene["matlas_desc"] = atlas["matlas_desc"]
+    else:
+        scene["atlas"] = None
+        scene["atlas_desc"] = None
     tp = build_tri_pack(scene)
     if tp is None:
         raise NotImplementedError(
@@ -297,24 +308,32 @@ def build_device_scene(
 def scene_to_torch(scene_np: dict, device) -> dict:
     """The numpy scene dict (the port's or ``rfw_tpu``'s own build) as
     tensors on ``device``: floating arrays as float32, integer arrays as
-    int32, bools as bool. Keys starting with "_" (host-side caches) are
-    dropped; non-array leaves pass through. A scene with visit tables
-    gains the kernels' derived tables (``visit_intersect.device_tables``),
-    made here once per build."""
-    def conv(x):
+    int32, bools as bool. The merged material atlas ``matlas`` (uint32
+    RGBA8 words, >= 2^31 wherever alpha >= 128) is carried as its int32
+    bit pattern, which ``ops.shade`` unpacks by shift and mask. Keys
+    starting with "_" (host-side caches) are dropped; non-array leaves
+    pass through. A scene with visit tables gains the kernels' derived
+    tables (``visit_intersect.device_tables``), made here once per
+    build."""
+    def conv(x, key=None):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()
+            return {k: conv(v, k) for k, v in x.items()
                     if not k.startswith("_")}
         if isinstance(x, (tuple, list)):
             return type(x)(conv(v) for v in x)
         if isinstance(x, np.ndarray):
-            if x.dtype.kind == "f":
+            if key == "matlas" and x.dtype == np.uint32:
+                x = x.view(np.int32)
+            elif x.dtype.kind == "f":
                 x = x.astype(np.float32, copy=False)
             elif x.dtype.kind in "iu":
                 if x.size and (x.min() < -(1 << 31) or x.max() >= (1 << 31)):
                     raise ValueError("integer table does not fit int32")
                 x = x.astype(np.int32, copy=False)
-            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            x = np.ascontiguousarray(x)
+            if not x.flags.writeable:    # a memory-mapped cache member
+                x = x.copy()
+            return torch.from_numpy(x).to(device)
         return x
     out = conv(scene_np)
     if "wplanes" in out.get("treelets", {}):

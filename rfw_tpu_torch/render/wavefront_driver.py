@@ -26,6 +26,7 @@ import torch
 from ..config import RenderConfig
 from ..ops.compaction import ray_sort_keys
 from ..ops.rng import blue_noise_shift_row
+from ..utils import Timer
 from .integrator import (Intersector, PathState, _tile_permutation,
                          depth_stage, make_path_state)
 
@@ -103,6 +104,7 @@ class WavefrontDriver:
         self._inv_np = tp[1] if tp is not None else None
         self._pc = None
         self._pc_key = None
+        self.depth_times: list[float] = []
 
     def _pixel_cache(self, scene):
         """Sample-invariant per-pixel raygen values in lane order: sx/sy,
@@ -123,10 +125,12 @@ class WavefrontDriver:
                            sort_rays=False, height=self.height)
 
     def step(self, scene, accumulator, view, sample_index: int,
-             probe_index: int):
+             probe_index: int, depth_times: list | None = None):
         """One sample for the whole frame. Returns (accumulator, probe,
         stats) with stats {"ray_count_d", "shadow_count_d"} as device
-        scalars."""
+        scalars. With ``depth_times`` (a list), the device is synchronised
+        after each depth and the depth's wall time (its stages and the
+        compaction after it) is appended, in seconds."""
         cfg, n, chunk = self.config, self.n, self.chunk
         probe_lane = (probe_index if self._inv_np is None
                       else int(self._inv_np[probe_index]))
@@ -134,43 +138,51 @@ class WavefrontDriver:
         packed = torch.empty((n, 18), device=self.device)
         stats = {}
         probe = None
-
-        def add(st, depth):
-            for k, v in st.items():
-                key = f"{k}_{depth}"
-                stats[key] = stats[key] + v if key in stats else v
-
+        timer = Timer()
         nc = n // chunk
-        for c in range(nc):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            st_c = make_path_state(scene, view, self.width, self.height,
-                                   sample_index, cfg, self._pid[sl],
-                                   pixel_cache={k: v[sl]
-                                                for k, v in pc.items()})
-            rel = probe_lane - c * chunk
-            in_chunk = 0 <= rel < chunk
-            out, st, probe_c = self._stage(scene, view, st_c, sample_index,
-                                           rel if in_chunk else 0, 0)
-            packed[sl] = _pack_state(out)
-            if in_chunk:
-                probe = probe_c
-            add(st, 0)
-
-        for depth in range(1, cfg.max_path_length + 1):
-            packed, live = _compact_prefix(scene, packed, nc, chunk)
-            nc = -(-live // chunk)
+        for depth in range(cfg.max_path_length + 1):
             for c in range(nc):
                 sl = slice(c * chunk, (c + 1) * chunk)
-                out, st, _ = self._stage(scene, view,
-                                         _unpack_state(packed[sl]),
-                                         sample_index, 0, depth)
+                rel = probe_lane - c * chunk
+                in_chunk = depth == 0 and 0 <= rel < chunk
+                if depth == 0:
+                    state = make_path_state(
+                        scene, view, self.width, self.height, sample_index,
+                        cfg, self._pid[sl],
+                        pixel_cache={k: v[sl] for k, v in pc.items()})
+                else:
+                    state = _unpack_state(packed[sl])
+                out, st, probe_c = self._stage(scene, view, state,
+                                               sample_index,
+                                               rel if in_chunk else 0, depth)
                 packed[sl] = _pack_state(out)
-                add(st, depth)
+                if in_chunk:
+                    probe = probe_c
+                for k, v in st.items():
+                    key = f"{k}_{depth}"
+                    stats[key] = stats[key] + v if key in stats else v
+            if depth < cfg.max_path_length:
+                packed, live = _compact_prefix(scene, packed, nc, chunk)
+                nc = -(-live // chunk)
+            if depth_times is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                depth_times.append(timer.elapsed())
+                timer = Timer()
 
         pid = packed[:, 17].contiguous().view(torch.int32).long()
         radiance = torch.empty((n, 3), device=self.device)
         radiance[pid] = packed[:, 13:16]
         return accumulator + radiance, probe, stats
+
+    def step_profiled(self, scene, accumulator, view, sample_index: int,
+                      probe_index: int):
+        """``step`` with a device sync after each depth, its wall times in
+        ``depth_times`` (the per-stage RenderStats split); the frame is
+        the same."""
+        self.depth_times = []
+        return self.step(scene, accumulator, view, sample_index,
+                         probe_index, depth_times=self.depth_times)
 
     def step_multi(self, scene, accumulator, view, sample_index: int,
                    probe_index: int, n_samples: int):

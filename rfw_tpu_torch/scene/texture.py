@@ -95,12 +95,16 @@ class Texture:
 
 
 def _cache_dir() -> str | None:
+    """The mip and atlas cache: the port's own directory, so that it never
+    reads mips that rfw_tpu wrote (its odd-size mips differ, see
+    ``_downsample2x``); ``RFW_TEX_CACHE_DIR`` overrides it."""
     import os
     if os.environ.get("RFW_NO_TEX_CACHE"):
         return None
     d = os.environ.get(
         "RFW_TEX_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "rfw_tpu", "tex"))
+        os.path.join(os.path.expanduser("~"), ".cache", "rfw_tpu_torch",
+                     "tex"))
     try:
         os.makedirs(d, exist_ok=True)
         return d
@@ -158,16 +162,20 @@ def _mip_cache_store(path: str, tex: "Texture") -> None:
 
 
 def _downsample2x(img: np.ndarray) -> np.ndarray:
-    """2x box filter with edge clamp for odd sizes (texture.cpp mip build)."""
+    """2x box filter (texture.cpp mip build). The next level is
+    floor(size / 2): an odd size drops its last row or column, so every
+    texel stays the equal-weight mean of a 2x2 block and the level sizes
+    are the ``size >> level`` the atlases assume; a size of 1 repeats its
+    edge. (rfw_tpu pads by a negative width there and raises.)"""
     h, w, c = img.shape
     if h <= 1 and w <= 1:
         return img.copy()
     h2, w2 = max(h // 2, 1), max(w // 2, 1)
-    ph, pw = h2 * 2, w2 * 2
-    padded = img
-    if ph != h or pw != w:
-        padded = np.pad(img, ((0, ph - h), (0, pw - w), (0, 0)), mode="edge")
-    return padded.reshape(h2, 2, w2, 2, c).mean(axis=(1, 3)).astype(np.float32)
+    img = img[:2 * h2, :2 * w2]
+    if img.shape[:2] != (2 * h2, 2 * w2):
+        img = np.pad(img, ((0, 2 * h2 - img.shape[0]),
+                           (0, 2 * w2 - img.shape[1]), (0, 0)), mode="edge")
+    return img.reshape(h2, 2, w2, 2, c).mean(axis=(1, 3)).astype(np.float32)
 
 
 def _resample_bilinear_wrap(img: np.ndarray, w: int, h: int) -> np.ndarray:

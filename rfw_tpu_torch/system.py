@@ -26,6 +26,7 @@ from .scene import (AreaLight, DirectionalLight, HostMaterial, MaterialList,
                     PointLight, Skybox, SpotLight, load_object, make_quad)
 from .scene.lights import pack_lights
 from .scene.object import SceneObject
+from .scene.texture import build_atlases_cached
 
 
 class Changed(enum.IntFlag):
@@ -37,6 +38,7 @@ class Changed(enum.IntFlag):
     AREA_LIGHTS = 16
     SKYBOX = 32
     ANIMATED = 64
+    TEXTURES = 128
 
 
 class RenderSystem:
@@ -101,7 +103,9 @@ class RenderSystem:
                     m.base_positions = ((m.base_positions - center)
                                         * scale).astype(np.float32)
                 m.invalidate()
-        return self._add(obj)
+        ref = self._add(obj)
+        self._changed |= Changed.TEXTURES     # the loader may add maps
+        return ref
 
     def add_quad(self, normal, position, width: float, height: float,
                  material_id: int) -> GeometryRef:
@@ -241,10 +245,19 @@ class RenderSystem:
             return
         if changed & Changed.SKYBOX and self._skybox is not None:
             ctx.set_sky(self._skybox.pixels)
-        if changed & Changed.MATERIALS or self._materials.is_dirty:
-            # texture maps are not ported yet: the engine raises at render
-            # time when a material binds one (ops/shade.py)
-            ctx.set_materials(self._materials.generate_device_materials())
+        if changed & (Changed.MATERIALS | Changed.TEXTURES) or \
+                self._materials.is_dirty:
+            mats_dev = self._materials.generate_device_materials()
+            atlas, mtex_id = build_atlases_cached(
+                self._materials.materials, self._materials.textures,
+                self.config.merged_material_atlas)
+            if self.config.merged_material_atlas:
+                if mtex_id is None:
+                    mtex_id = np.zeros(
+                        max(len(self._materials.materials), 1), np.int32)
+                mats_dev["mtex_id"] = mtex_id
+            ctx.set_materials(mats_dev)
+            ctx.set_textures(atlas)
             self._materials.mark_clean()
             emissive = np.array([m.is_emissive()
                                  for m in self._materials.materials], bool)

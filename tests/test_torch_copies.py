@@ -9,6 +9,7 @@ import base64
 import dataclasses
 import json
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -155,9 +156,25 @@ def test_pack_lights_equal():
         assert a.dtype == b.dtype and np.array_equal(a, b), k
 
 
-def test_native_bvh_build_equal():
+def _reference_native(monkeypatch, timeout_s: float = 60.0):
+    """rfw_tpu's native library, loaded. rfw_tpu compiles it at first use
+    straight into its final path, so under several test workers another
+    worker may still be writing it when this one tries to load it; the
+    failed load is cached for the process. Retry, resetting that cache,
+    until the library loads or ``timeout_s`` passes."""
+    deadline = time.monotonic() + timeout_s
+    while j_native._load() is None:
+        if time.monotonic() > deadline:
+            pytest.fail("rfw_tpu's native library did not load within "
+                        f"{timeout_s:.0f} s")
+        time.sleep(0.5)
+        monkeypatch.setattr(j_native, "_TRIED", False)
+
+
+def test_native_bvh_build_equal(monkeypatch):
     if shutil.which("g++") is None:
         pytest.skip("no g++: neither native BVH library can be built")
+    _reference_native(monkeypatch)
     assert native.available(), "the port's native library did not build"
     path = native.library_path()
     assert path.startswith(native.BUILD_DIR) and path.endswith(".so")

@@ -74,7 +74,7 @@ def test_build_device_scene_matches_reference(make):
                                     area_light_overrides=overrides)
     instances, mats, lights, overrides = make(port=True)
     port = scene_data.build_device_scene(instances, mats, lights, None,
-                                         RenderConfig(),
+                                         None, RenderConfig(),
                                          area_light_overrides=overrides)
     ref_leaves = dict(_leaves(ref))
     n = 0

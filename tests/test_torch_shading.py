@@ -154,6 +154,7 @@ def test_get_shading_data(config2_scene):
         jnp.zeros(N), tex_flags=flags)
     got = tshade.get_shading_data(scene_t, torch.from_numpy(prim),
                                   torch.from_numpy(u), torch.from_numpy(v),
+                                  torch.from_numpy(d), torch.zeros(N),
                                   tex_flags=flags)
     sd_j, sd_t = ref[0], got[0]
     assert sd_j.keys() == sd_t.keys()
@@ -163,11 +164,31 @@ def test_get_shading_data(config2_scene):
         _close(a, b)
 
 
-def test_bound_texture_raises(config2_scene):
-    with pytest.raises(NotImplementedError, match="texture"):
-        tshade.get_shading_data(config2_scene[1], torch.zeros(4, dtype=torch.int32),
-                                torch.zeros(4), torch.zeros(4),
-                                tex_flags={"diffuse": True})
+def test_bound_diffuse_map_modulates_colour(config2_scene):
+    """A diffuse map bound to a material multiplies its colour by the
+    texel (here one constant texel, so every filter agrees)."""
+    scene = dict(config2_scene[1])
+    mats = dict(scene["materials"])
+    mats["tex0_id"] = torch.zeros_like(mats["tex0_id"])
+    scene["materials"] = mats
+    texel = torch.tensor([0.5, 0.25, 1.0, 1.0])
+    scene["atlas"] = texel.expand(8, 4).contiguous()
+    desc = torch.zeros((1, 5, 3), dtype=torch.int32)
+    desc[0, :, 1:] = 1
+    scene["atlas_desc"] = desc
+    n = 64
+    prim = torch.arange(n, dtype=torch.int32) % scene["tri_pack"].shape[0]
+    d = torch.tensor([0.0, -1.0, 0.0]).expand(n, 3)
+    plain = tshade.get_shading_data(config2_scene[1], prim, torch.full(
+        (n,), 0.25), torch.full((n,), 0.25), d, torch.full((n,), 1e-3))[0]
+    for filt in ("trilinear", "bilinear", "nearest", "stochastic"):
+        sd = tshade.get_shading_data(
+            scene, prim, torch.full((n,), 0.25), torch.full((n,), 0.25), d,
+            torch.full((n,), 1e-3),
+            tex_flags={"diffuse": True, "normal": False, "rough": False},
+            tex_filter=filt, stoch_seed=torch.arange(n, dtype=torch.int64))[0]
+        assert torch.equal(sd["color"], plain["color"] * texel[:3]), filt
+        assert torch.equal(sd["roughness"], plain["roughness"])
 
 
 def test_ray_sort_keys_exact():

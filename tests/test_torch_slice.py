@@ -10,8 +10,14 @@
   program and its per-depth stages (which the port matches there) part
   on one lamp-grazing shadow ray, whose 1/2-weighted sample alone puts
   the RMSE at 2.7e-3.
-* Inside the port, the compacted frame equals the fused one and a
-  multi-sample step equals the looped single-sample step.
+* Config 3 (microfacet BSDF, a checker-textured floor through the
+  merged material atlas and its stochastic fetch, envmap importance
+  sampling at every depth) lands on its golden and on rfw_tpu's own
+  wavefront frame to the same bar.
+* Inside the port, the compacted frame equals the fused one, a
+  multi-sample step equals the looped single-sample step, and a frame
+  whose last sample runs the per-depth profiled step equals the
+  unprofiled frame.
 """
 
 import os
@@ -20,7 +26,7 @@ import numpy as np
 import torch
 
 import golden_scenes
-from chip_smoke import make_config2
+from chip_smoke import config3, make_config2, make_config3
 from rfw_tpu_torch import Camera
 from rfw_tpu_torch.config import RenderConfig
 from rfw_tpu_torch.render import RenderStatus, create_engine
@@ -29,6 +35,7 @@ from rfw_tpu_torch.scene.lights import PointLight, pack_lights
 from rfw_tpu_torch.system import RenderSystem
 
 GOLDEN = os.path.join(golden_scenes.GOLDEN_DIR, "config2_64_8spp.npy")
+GOLDEN3 = os.path.join(golden_scenes.GOLDEN_DIR, "config3_64_8spp.npy")
 
 
 def _rmse(a, b):
@@ -118,3 +125,41 @@ def test_step_multi_equals_looped_step():
     assert stats_m.keys() == stats.keys()
     for k in stats:
         assert int(stats_m[k]) == int(stats[k]), k
+
+
+def test_config3_golden_and_reference(monkeypatch):
+    monkeypatch.setenv("RFW_NO_TEX_CACHE", "1")
+    rs = make_config3(RenderSystem("wavefront",
+                                   config3(max_rays_per_pass=1024),
+                                   device="cpu"))
+    img = rs.render_frame(samples=8)
+    eng = rs.context
+    assert eng._driver is not None                # 4 chunks
+    assert eng._scene["matlas"].dtype == torch.int32   # the merged atlas
+    assert eng._scene["atlas"].shape == (1, 4)         # and its stub
+    assert img.shape == (64, 64, 3) and np.isfinite(img).all()
+    assert _rmse(img, np.load(GOLDEN3).astype(np.float32)) < 2e-3
+
+    ref = golden_scenes.make_config3(engine="wavefront")
+    ref.set_setting("intersector", "visit")
+    assert _rmse(img, np.asarray(ref.render_frame(samples=8))) < 2e-3
+
+
+def test_profile_stages_frame_equals_unprofiled():
+    frames, stats = [], []
+    for profile in (False, True):
+        cfg = RenderConfig(max_path_length=2, blue_noise=True,
+                           max_rays_per_pass=1024, profile_stages=profile)
+        eng = create_engine("wavefront", cfg, device="cpu")
+        _scene(eng)
+        eng.resize(64, 48)
+        frames.append(eng.render_frame(_view(), RenderStatus.RESET,
+                                       samples=3))
+        stats.append(eng.get_stats())
+    assert np.abs(frames[0] - frames[1]).max() <= 1e-6
+    assert stats[0].primary_time == 0.0
+    st = stats[1]
+    assert st.primary_time > 0 and st.secondary_time > 0
+    assert st.deep_time > 0 and st.primary_count == stats[0].primary_count
+    assert st.primary_time + st.secondary_time + st.deep_time \
+        <= st.render_time

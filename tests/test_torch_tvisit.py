@@ -82,7 +82,7 @@ def soup():
         j_pack_lights([], [], [], []), None, None, J_CFG)
     port = scene_data.build_device_scene(
         [_instance(scene_data, build_triangles, verts)], None, None, None,
-        CFG)
+        None, CFG)
     return scene_data.scene_to_torch(port, "cpu"), port, ref, _to_jax(ref)
 
 
@@ -247,7 +247,8 @@ def test_lone_ray_hits_padded_wall(mod):
         triangles=build_triangles(pos, faces),
         transform=np.eye(4, dtype=np.float32), instance_id=0, mesh_slot=0)
     scene = scene_data.scene_to_torch(
-        scene_data.build_device_scene([inst], None, None, None, CFG), "cpu")
+        scene_data.build_device_scene([inst], None, None, None, None, CFG),
+        "cpu")
     o = torch.tensor([[-13.531232833862305, 0.0010000000474974513,
                        -4.724479675292969]])
     d = torch.tensor([[-1.1448605619079899e-05, 0.5722855925559998,
@@ -303,7 +304,7 @@ def test_missing_child_tables_raise(soup):
     port = scene_data.scene_to_torch(
         scene_data.build_device_scene(
             [_instance(scene_data, build_triangles, _soup_verts())], None,
-            None, None, RenderConfig()), "cpu")
+            None, None, None, RenderConfig()), "cpu")
     o, d, _ = (torch.from_numpy(x) for x in _rays(256))
     with pytest.raises(ValueError, match="subcell_tables"):
         ptv.closest_hit(port, o, d, CFG)
@@ -349,7 +350,7 @@ def test_triangle_major_child_planes(soup, subcell):
     else:
         tl = scene_data.scene_to_torch(scene_data.build_device_scene(
             [_instance(scene_data, build_triangles, _soup_verts())], None,
-            None, None, RenderConfig()), "cpu")["treelets"]
+            None, None, None, RenderConfig()), "cpu")["treelets"]
     assert ("wplanes32_tm" in tl) == ("bmin32" in tl) == subcell
     if not subcell:
         return

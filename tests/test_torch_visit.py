@@ -51,7 +51,7 @@ def _build(verts):
         [scene_data.InstancedMesh(
             triangles=build_triangles(verts.reshape(-1, 3), idx),
             transform=eye, instance_id=0, mesh_slot=0)],
-        None, None, None, RenderConfig())
+        None, None, None, None, RenderConfig())
     return scene_data.scene_to_torch(port, "cpu"), ref
 
 
