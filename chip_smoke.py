@@ -8,7 +8,8 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
 1. the card: name and power limit as nvidia-smi reports them;
 2. builds the CUDA kernels from csrc/ (one nvcc per source, in
    parallel), with the build seconds and each kernel's registers, shared
-   memory and spills as ptxas reports them (a spill fails the run);
+   memory, stack frame and spills as ptxas reports them (a spill fails
+   the run; the traversal's 64-entry stack is a stack frame);
 3. holds each kernel against its plain PyTorch version on the main
    path's own 1080p streams (a primary chunk and a bounce chunk of
    518,400 lanes each): enum must be equal, visit and tvisit (built with
@@ -26,13 +27,19 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    window of each chunk the expansion kernel against expand_children_ref
    (cids, counts and tnears equal) and tvisit against tvisit_ref on the
    kernel's own lists (t and slot equal, closest and any-hit), timed and
-   bounded as above;
+   bounded as above. The traversal kernel is held to traverse_wide_ref
+   on the same two chunks (t, prim, u and v equal, closest and any hit),
+   timed (the plain version once) and bounded by the node visits and
+   triangle tests the plain version counts on that stream;
 4. renders the config-2 Cornell scene and the config-3 scene
    (microfacet BSDF, a checker-textured floor through the merged
    material atlas, envmap importance sampling; 64², 8 spp, compacted
    driver) on the card through the visit and the tvisit intersectors and
    holds them to tests/golden/config{2,3}_64_8spp.npy (RMSE < 2e-3, the
-   golden matrix's bar);
+   golden matrix's bar); then the Cornell scene (tests/test_golden.py),
+   config 2 and config 3 through megakernel (fused chunks, the bvh
+   traversal kernel) against their goldens, and bruteforce against
+   megakernel on the Cornell scene (32², 4 spp, RMSE < 2e-3);
 5. the visit slice at full size: RenderSystem("wavefront") at 1920x1080
    on a generated ~317k-triangle scene loaded through add_object (PLY,
    with texture coordinates that no untextured material reads), one
@@ -58,13 +65,21 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    take as long as the build; one more deformation update under the
    profiler; the final state against a fresh build of it (4 spp, RMSE <
    2e-3); then one deformation frame through tvisit, which must launch
-   expand and tvisit.
+   expand and tvisit; then the system switched to the bvh intersector
+   and one deformation update, which must take the host refit (no full
+   build), its frame (2 spp) within RMSE 2e-3 of a fresh build's;
+9. the megakernel slice: RenderSystem("megakernel") on phase 5's scene,
+   camera and samples, timed as phase 5; the traverse counter must grow
+   and enum and visit stay 0, and the frame must lie within RMSE 2e-3 of
+   phase 5's; then BASELINE config 1, RenderSystem("direct") on the
+   Cornell scene at 512², 1 spp (median of 5 frames), finite, non-black
+   and darker than megakernel's frame of the same scene and samples.
 
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON (its
-launches from phases 5-7), the card's name and power limit, and the
-run's JSON result.
+launches from phases 5, 6 and 9), the card's name and power limit, and
+the run's JSON result.
 
 To compare two trees on one card, run this script from an unpacked
 ``git archive`` of each, one after the other, in one chip command.
@@ -87,12 +102,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"enum": "rfw_tpu_torch/csrc/visit_kernels.cu",
            "visit": "rfw_tpu_torch/csrc/visit_kernels.cu",
            "expand": "rfw_tpu_torch/csrc/expand_kernel.cu",
-           "tvisit": "rfw_tpu_torch/csrc/tvisit_kernel.cu"}
-# expand replaces an XLA step, not a Pallas kernel
+           "tvisit": "rfw_tpu_torch/csrc/tvisit_kernel.cu",
+           "traverse": "rfw_tpu_torch/csrc/traverse_kernel.cu"}
+# expand and traverse replace XLA steps, not Pallas kernels
 REPLACES = {"enum": "rfw_tpu/ops/visit_intersect.py:94",
             "visit": "rfw_tpu/ops/visit_intersect.py:303",
             "expand": "rfw_tpu/ops/tvisit_intersect.py:89",
-            "tvisit": "rfw_tpu/ops/tvisit_intersect.py:186"}
+            "tvisit": "rfw_tpu/ops/tvisit_intersect.py:186",
+            "traverse": "rfw_tpu/ops/traverse.py:58"}
 KERNELS = tuple(SOURCES)
 SEED = 20261016
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense)
@@ -101,6 +118,8 @@ PEAK_BYTES = 3.35e12       # bytes/s of HBM
 # FP32 operations per unit of work, counted from the kernels' source
 FLOP_PER_TEST = 39         # one Woop (ray, triangle) test
 FLOP_PER_SLAB = 28         # one (ray, cell) slab test
+FLOP_PER_BOX = 25          # one (ray, child box) test of the traversal
+FLOP_PER_MT = 53           # one Möller–Trumbore (ray, triangle) test
 
 
 def _check(cond: bool, what: str) -> None:
@@ -360,6 +379,28 @@ def slice_materials(rs, size: int = 1024):
     return spheres, textured([0.6, 0.62, 0.65], 0.8, 0.2)
 
 
+def make_cornell(rs, size: int = 64):
+    """tests/test_integrator.py::make_cornell's scene (the Cornell golden's
+    and BASELINE config 1's), through the port."""
+    white = rs.add_material([0.73] * 3)
+    red = rs.add_material([0.63, 0.065, 0.05])
+    green = rs.add_material([0.14, 0.45, 0.091])
+    lamp_m = rs.add_material([20.0] * 3)
+    for (n, p, w, h, m) in [
+        ([0, 1, 0], [0, 0, 0], 5.56, 5.56, white),
+        ([0, -1, 0], [0, 5.48, 0], 5.56, 5.56, white),
+        ([0, 0, -1], [0, 2.74, 2.796], 5.56, 5.48, white),
+        ([1, 0, 0], [-2.78, 2.74, 0], 5.48, 5.56, red),
+        ([-1, 0, 0], [2.78, 2.74, 0], 5.48, 5.56, green),
+        ([0, -1, 0], [0, 5.47, 0], 1.3, 1.05, lamp_m),
+    ]:
+        rs.add_instance(rs.add_quad(n, p, w, h, m))
+    rs.camera.resize(size, size)
+    rs.camera.fov = 40.0
+    rs.camera.look_at([0, 2.73, -8.0], [0, 2.73, 0])
+    return rs
+
+
 def make_config2(rs):
     """tests/golden_scenes.py::make_config2's scene, through the port."""
     white = rs.add_material([0.73] * 3)
@@ -478,8 +519,8 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d+(t?visit_kernel|enum_kernel|expand_kernel)",
-                          m.group(1))
+            k = re.search(r"\d+(t?visit_kernel|enum_kernel|expand_kernel"
+                          r"|traverse_kernel)", m.group(1))
             cur = out.setdefault(k.group(1) if k else m.group(1), {})
             continue
         if cur is None:
@@ -626,6 +667,112 @@ def phase_kernels(rs, cfg, ptxas):
             if name == "bounce" and not any_hit:
                 report["visit"].update(ms=ms_k, plain_ms=ms_p, **vb)
     return report
+
+
+def phase_traverse_kernel(rs, cfg, ptxas):
+    """The traversal kernel against traverse_wide_ref on the primary and
+    bounce chunks, closest and any hit (t, prim, u, v equal), timed and
+    bounded by the work the plain version counts on the same stream."""
+    import torch
+    from rfw_tpu_torch.ops import traverse
+    scene, streams, _ = _streams(rs)
+    bvh = scene["bvh"]
+    v = scene["tri_vertices"]
+    tris = (v[:, 0].contiguous(), (v[:, 1] - v[:, 0]).contiguous(),
+            (v[:, 2] - v[:, 0]).contiguous())
+    p = ptxas.get("traverse_kernel", {})
+    print(f"phase 3: traverse_kernel ptxas: {p.get('registers')} registers, "
+          f"{p.get('stack')} B stack frame (the 64-entry stack), "
+          f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill "
+          f"stores/loads; {bvh['nodes'].shape[0]} nodes of 128 B, "
+          f"{v.shape[0]} triangles")
+    eps = float(cfg.t_epsilon)
+    report = {"err": 0.0}
+    for name in ("primary", "bounce"):
+        o, d, tm = streams[name]
+        n = o.shape[0]
+        for any_hit in (False, True):
+            mode = "any-hit" if any_hit else "closest"
+
+            def kernel():
+                return traverse.traverse_wide(o, d, bvh, tris, t_max=tm,
+                                              t_epsilon=eps, any_hit=any_hit)
+
+            work = {}
+            out_k = kernel()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out_p = traverse.traverse_wide_ref(o, d, bvh, tris, t_max=tm,
+                                               t_epsilon=eps,
+                                               any_hit=any_hit, stats=work)
+            b.record()
+            torch.cuda.synchronize()
+            ms_p = a.elapsed_time(b)
+            same = [torch.equal(x, y) for x, y in zip(out_k, out_p)]
+            agree = float((out_k[1] == out_p[1]).float().mean())
+            _check(all(same), f"traverse kernel != plain on {name} {mode} "
+                   f"(t, prim, u, v equal: {same}; prim agreement {agree})")
+            report["err"] = max(report["err"], float(
+                (out_k[0] - out_p[0]).abs().max()))
+            ms_k = _median_ms(kernel)
+            # bytes: each ray's origin, direction and t_max in and its
+            # t, prim, u, v out; the 128 B row of each node the walk
+            # popped and the 36 B of each triangle it tested (the padded
+            # nodes and the untouched subtrees are never read)
+            nodes_read = int(work["node_seen"].sum())
+            tris_read = int(work["tri_seen"].sum())
+            tb = _bound(work["visits"] * 4.0 * FLOP_PER_BOX
+                        + work["tests"] * float(FLOP_PER_MT),
+                        4.0 * 11 * n + 128.0 * nodes_read + 36.0 * tris_read)
+            found = float((out_k[1] >= 0).float().mean())
+            print(f"phase 3: traverse {name:8s} {mode:7s} equal (t, prim, "
+                  f"u, v; found {found:.4f}), kernel {ms_k:.3f} ms (median "
+                  f"of 5), plain {ms_p:.1f} ms (one run), bound "
+                  f"{tb['bound_ms']:.4f} ms ({tb['bound_by']}, "
+                  f"{work['visits']} node visits of {nodes_read} distinct "
+                  f"nodes, {work['tests']} triangle tests of {tris_read} "
+                  f"distinct triangles; {tb['half_ms']:.4f} ms at the "
+                  f"unfused half rate), "
+                  f"share of bound {tb['bound_ms'] / ms_k:.4f}")
+            if name == "bounce" and not any_hit:
+                report.update(ms=ms_k, plain_ms=ms_p, **tb)
+    return {"traverse": report}
+
+
+def phase_megakernel_golden():
+    """Phase 4's megakernel half: the Cornell golden and the config-2 and
+    config-3 goldens through megakernel on the card, then bruteforce
+    against megakernel on the Cornell scene."""
+    from rfw_tpu_torch.config import RenderConfig
+    from rfw_tpu_torch.system import RenderSystem
+    cases = (("cornell", make_cornell, lambda: RenderConfig(blue_noise=True)),
+             ("config2", make_config2,
+              lambda: RenderConfig(blue_noise=True, max_path_length=3)),
+             ("config3", make_config3, config3))
+    for label, make, cfg in cases:
+        golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                      f"{label}_64_8spp.npy")).astype(
+                                          np.float32)
+        rs = make(RenderSystem("megakernel", cfg(), device="cuda"))
+        img = rs.render_frame(samples=8)
+        rmse = _rmse(img, golden)
+        print(f"phase 4: {label} 64x64 8 spp on the card, megakernel: RMSE "
+              f"vs golden {rmse:.6g} (bar 2e-3), mean "
+              f"{float(img.mean()):.6g}")
+        _check(img.shape == (64, 64, 3) and bool(np.isfinite(img).all()),
+               f"{label} megakernel frame not finite or misshapen")
+        _check(rmse < 2e-3, f"{label} megakernel frame RMSE {rmse} >= 2e-3")
+    fast = dict(bsdf="lambert", blue_noise=False, russian_roulette=False,
+                firefly_clamp=1e9, max_path_length=2)
+    imgs = {name: make_cornell(RenderSystem(name, RenderConfig(**fast),
+                                            device="cuda"), 32)
+            .render_frame(samples=4) for name in ("bruteforce", "megakernel")}
+    rmse = _rmse(imgs["bruteforce"], imgs["megakernel"])
+    print(f"phase 4: Cornell 32x32 4 spp, bruteforce vs megakernel: equal "
+          f"{bool(np.array_equal(imgs['bruteforce'], imgs['megakernel']))}, "
+          f"RMSE {rmse:.6g} (bar 2e-3)")
+    _check(rmse < 2e-3, f"bruteforce vs megakernel RMSE {rmse} >= 2e-3")
 
 
 def phase_golden():
@@ -789,19 +936,19 @@ def phase_slice(rs, n_tris, label, png, profile, must_launch):
     launch counters are reset just before the windows. Returns the
     launches and the frame."""
     import torch
-    from rfw_tpu_torch.ops import visit_intersect as vi
+    from rfw_tpu_torch.ops import cuda_lib
     from rfw_tpu_torch.render import RenderStatus
     rs.render_frame(status=RenderStatus.RESET, samples=1)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     samples, windows = 4, []
-    vi.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     for _ in range(3):
         t0 = time.perf_counter()
         rs.render_frame_async(status=RenderStatus.CONVERGE, samples=samples)
         frame = rs.finish_frame()
         windows.append((time.perf_counter() - t0) * 1000.0 / samples)
-    launches = dict(vi.launch_counts)
+    launches = dict(cuda_lib.launch_counts)
     st = rs.get_render_stats()
     rays = (st.primary_count + st.secondary_count + st.deep_count
             + st.shadow_count)
@@ -957,7 +1104,7 @@ def phase_refit():
     deformation frame."""
     import torch
     import rfw_tpu_torch.render.scene_data as sd
-    from rfw_tpu_torch.ops import visit_intersect as vi
+    from rfw_tpu_torch.ops import cuda_lib
     from rfw_tpu_torch.render import RenderStatus
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
@@ -995,13 +1142,13 @@ def phase_refit():
         return (t2 - t0) * 1e3, (t1 - t0) * 1e3, refit
 
     def sample():
-        vi.reset_launch_counts()
+        cuda_lib.reset_launch_counts()
         t0 = time.perf_counter()
         frame = rs.render_frame(status=RenderStatus.CONVERGE, samples=1)
         ms = (time.perf_counter() - t0) * 1e3
         _check(bool(np.isfinite(frame).all()) and float(frame.mean()) > 0,
                "phase 8 frame not finite/positive")
-        return ms, dict(vi.launch_counts)
+        return ms, dict(cuda_lib.launch_counts)
 
     def report(label, rows):
         upd, host, refit, smp = (float(np.median(c)) for c in zip(*rows))
@@ -1099,10 +1246,117 @@ def phase_refit():
                   f"launches {counts}")
             _check(counts["expand"] > 0 and counts["tvisit"] > 0,
                    f"tvisit deformation frame launched {counts}")
+            phase_host_refit(rs, work, builds)
     finally:
         sd.build_device_scene, sd.make_device_refit = build, make_refit
     print(f"phase 8: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_host_refit(rs, work, builds):
+    """Phase 8's host refit: the phase-8 system switched to the bvh
+    intersector, then one deformation update, which must take the host
+    refit (no full build; ``builds`` counts them) and render like a fresh
+    build of its state through bvh."""
+    import torch
+    import rfw_tpu_torch.render.scene_data as sd
+    from rfw_tpu_torch.ops import cuda_lib
+    from rfw_tpu_torch.render import RenderStatus
+    host_refit = sd.refit_deformed
+    spans = []
+
+    def timed_host_refit(*a, **kw):
+        t = time.perf_counter()
+        out = host_refit(*a, **kw)
+        spans.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    sd.refit_deformed = timed_host_refit
+    try:
+        n_builds = builds[0]
+        t0 = time.perf_counter()
+        rs.set_setting("intersector", "bvh")
+        rs.render_frame(status=RenderStatus.RESET, samples=1)
+        print(f"phase 8: switch to bvh and one 1080p sample "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms "
+              f"({builds[0] - n_builds} full builds, {len(spans)} host "
+              f"refits: the switch keeps the topology)")
+        t_state = 0.97
+        torch.cuda.synchronize()
+        n_builds, n_spans = builds[0], len(spans)
+        t0 = time.perf_counter()
+        rs.set_animations_to(t_state)
+        rs.synchronize()
+        torch.cuda.synchronize()
+        upd = (time.perf_counter() - t0) * 1e3
+    finally:
+        sd.refit_deformed = host_refit
+    _check(builds[0] == n_builds and len(spans) == n_spans + 1,
+           f"the bvh deformation took {builds[0] - n_builds} full builds and "
+           f"{len(spans) - n_spans} host refits")
+    cuda_lib.reset_launch_counts()
+    a = rs.render_frame(status=RenderStatus.RESET, samples=2)
+    counts = dict(cuda_lib.launch_counts)
+    _check(counts["traverse"] > 0, f"bvh frame launched {counts}")
+    fresh, _ = _refit_system(work, t_state, _sphere_move(REFIT_FRAMES))
+    fresh.set_setting("intersector", "bvh")
+    b = fresh.render_frame(status=RenderStatus.RESET, samples=2)
+    del fresh
+    rmse = _rmse(a, b)
+    print(f"phase 8: bvh deformation update {upd:.1f} ms, of which the host "
+          f"refit (refit_deformed, host clock) {spans[-1]:.1f} ms; 2 spp at "
+          f"1080p vs a fresh build: RMSE {rmse:.6g} (bar 2e-3), max abs "
+          f"difference {float(np.abs(a - b).max()):.6g}; launches {counts}")
+    _check(rmse < 2e-3, f"host refit frame RMSE {rmse} >= 2e-3")
+
+
+def phase_megakernel(frame_visit, png, profile):
+    """Phase 9: the megakernel slice at 1080p (phase 5's scene, camera
+    and samples), then BASELINE config 1 (direct, Cornell, 512², 1 spp).
+    Returns the slice's launches."""
+    import torch
+    from rfw_tpu_torch.config import RenderConfig
+    from rfw_tpu_torch.render import RenderStatus
+    from rfw_tpu_torch.system import RenderSystem
+    rs = RenderSystem("megakernel", RenderConfig(), device="cuda")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        n_tris = build_slice_scene(rs, work)
+        rs.synchronize()
+        print(f"phase 9: scene of {n_tris} triangles loaded and built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    launches, frame = phase_slice(rs, n_tris, "phase 9", png, profile,
+                                  ("traverse",))
+    _check(launches["enum"] == 0 and launches["visit"] == 0,
+           f"the megakernel slice launched visit-list kernels: {launches}")
+    rmse = _rmse(frame, frame_visit)
+    print(f"phase 9: megakernel frame vs phase 5's visit frame: RMSE "
+          f"{rmse:.6g} (bar 2e-3), max abs difference "
+          f"{float(np.abs(frame - frame_visit).max()):.6g}")
+    _check(rmse < 2e-3, f"megakernel slice frame RMSE {rmse} >= 2e-3")
+    del rs
+    torch.cuda.empty_cache()
+
+    frames = {}
+    for name in ("direct", "megakernel"):
+        rs = make_cornell(RenderSystem(name, RenderConfig(), device="cuda"),
+                          512)
+        times = []
+        for _ in range(6):                  # the first one warms up
+            t0 = time.perf_counter()
+            frames[name] = rs.render_frame(status=RenderStatus.RESET,
+                                           samples=1)
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"phase 9: BASELINE config 1 scene (Cornell, 512x512, 1 spp) "
+              f"through {name}: median frame {float(np.median(times[1:])):.2f}"
+              f" ms over 5 (synced), frame mean "
+              f"{float(frames[name].mean()):.6g}")
+    d, m = frames["direct"], frames["megakernel"]
+    _check(d.shape == (512, 512, 3) and bool(np.isfinite(d).all())
+           and float(d.mean()) > 0.01, "direct frame not finite/non-black")
+    _check(float(m.mean()) > float(d.mean()),
+           "direct frame not darker than megakernel's")
     return launches
 
 
@@ -1157,7 +1411,9 @@ def main() -> int:
         print(f"phase 5: scene of {n_tris} triangles loaded and built in "
               f"{time.perf_counter() - t0:.1f} s")
     report = phase_kernels(rs, cfg, ptxas)
+    report.update(phase_traverse_kernel(rs, cfg, ptxas))
     phase_golden()
+    phase_megakernel_golden()
     launches, frame_visit = phase_slice(rs, n_tris, "phase 5", args.png,
                                         args.profile, ("enum", "visit"))
     phase_depth_split(rs, "phase 5")
@@ -1184,11 +1440,15 @@ def main() -> int:
     print(f"phase 7: launches on the textured slice {launches_7}")
     torch.cuda.empty_cache()
     launches_8 = phase_refit()
+    torch.cuda.empty_cache()
+    png9 = args.png and os.path.splitext(args.png)[0] + "_megakernel.png"
+    launches.update(traverse=phase_megakernel(frame_visit, png9,
+                                              args.profile)["traverse"])
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print("phase 8: launches per deformation frame (1080p, 1 spp): "
           + json.dumps(launches_8))
 
-    # no single PyTorch call computes any of the four functions
+    # no single PyTorch call computes any of the five functions
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["err"], "ms": report[name]["ms"],

@@ -29,7 +29,7 @@ TRAVERSAL_COST = 1.0
 INTERSECT_COST = 1.0
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class BVH:
     """Binary BVH, SoA. Internal nodes: left child = child[i], right child =
     child[i] + 1, count[i] == 0. Leaves: first[i]/count[i] index the
@@ -41,6 +41,17 @@ class BVH:
     count: np.ndarray       # (N,) int32 — 0 internal, else #tris
     prim_order: np.ndarray  # (T,) int32 permutation of input triangles
     depth: np.ndarray       # (N,) int32 node depth (root = 0)
+
+    def __eq__(self, other) -> bool:
+        """Field by field, array for array (the dataclass default would
+        take the truth value of an array). Any object with the same
+        fields compares, rfw_tpu's BVH too."""
+        try:
+            return all(np.array_equal(getattr(self, f.name),
+                                      getattr(other, f.name))
+                       for f in dataclasses.fields(self))
+        except AttributeError:
+            return NotImplemented
 
     @property
     def node_count(self) -> int:

@@ -25,10 +25,12 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", f)
                 for f in ("visit_kernels.cu", "expand_kernel.cu",
-                          "tvisit_kernel.cu"))
+                          "tvisit_kernel.cu", "traverse_kernel.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -36,6 +38,49 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib = None
 build_seconds = 0.0
 build_log = ""
+
+# launches of each kernel since the last reset; a wrapper counts a launch
+# of its kernel here and nowhere else (its plain version on CPU tensors
+# does not count)
+launch_counts = {"enum": 0, "visit": 0, "expand": 0, "tvisit": 0,
+                 "traverse": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def kernel_device(t: torch.Tensor, family: str) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the plain version); any other device raises, naming the kernel
+    ``family``."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no {family} kernels for device {t.device}")
+
+
+def check_inputs(device, **tensors) -> None:
+    """Each of ``name=(tensor, dtype)`` lies on ``device``, has that dtype
+    and is contiguous, as the kernels' raw pointers need."""
+    for name, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """The current CUDA stream of ``device``, for a launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def _nvcc() -> str:
@@ -125,6 +170,9 @@ def load() -> ctypes.CDLL:
     lib.rfw_expand.restype = i
     lib.rfw_tvisit.argtypes = [p, i, p, p, p, i, p, i, i, f, i, p, p, p, p]
     lib.rfw_tvisit.restype = i
+    lib.rfw_traverse.argtypes = [p, p, p, i, p, p, p, p, i, f, i, p, p, p, p,
+                                 p]
+    lib.rfw_traverse.restype = i
     lib.rfw_error_string.argtypes = [i]
     lib.rfw_error_string.restype = ctypes.c_char_p
     _lib = lib

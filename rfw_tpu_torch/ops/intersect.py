@@ -51,6 +51,68 @@ def intersect_tri(origin, direction, v0, e1, e2, t_epsilon=1e-4, t_max=BIG_T):
     return hit, t, u, v
 
 
+def intersect_woop(origin, direction, woop, t_epsilon=1e-4, t_max=BIG_T):
+    """Rays (R, 3) against Woop-transformed triangles (K, 3, 4): the
+    dense test of ``rfw_tpu.ops.intersect.intersect_woop``. Each row of
+    the 3x4 map is applied as four separately rounded products summed
+    in order (no matrix-multiply library, so no TF32). ``t_max`` is a
+    number or one bound per ray. Returns (hit, t, u, v), each (R, K)."""
+    if torch.is_tensor(t_max) and t_max.dim() == 1:
+        t_max = t_max[:, None]
+    o, d = origin[:, None, None, :], direction[:, None, None, :]
+    op = (o[..., 0] * woop[..., 0] + o[..., 1] * woop[..., 1]
+          + o[..., 2] * woop[..., 2] + woop[..., 3])           # (R, K, 3)
+    dp = (d[..., 0] * woop[..., 0] + d[..., 1] * woop[..., 1]
+          + d[..., 2] * woop[..., 2])
+    oz, dz = op[..., 2], dp[..., 2]
+    valid = dz.abs() > 1e-12
+    t = -oz / torch.where(valid, dz, 1.0)
+    u = op[..., 0] + t * dp[..., 0]
+    v = op[..., 1] + t * dp[..., 1]
+    hit = (valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_epsilon) & (t < t_max))
+    return hit, t, u, v
+
+
+def closest_hit_woop(origin, direction, woop, prim_ids, t_epsilon=1e-4,
+                     t_max=BIG_T, tri_verts=None):
+    """Closest hit of rays (R, 3) against triangles (K, 3, 4) with ids
+    (K,): (t, prim, u, v), t = BIG_T and prim = -1 on a miss; on equal t
+    the first triangle wins, as ``jnp.argmin`` picks it. Given
+    ``tri_verts`` (K, 3, 3), the winner is refined by one Möller–Trumbore
+    test (better conditioned than the Woop form), whose numbers are kept
+    where it agrees that the ray hits."""
+    hit, t, u, v = intersect_woop(origin, direction, woop, t_epsilon, t_max)
+    t = torch.where(hit, t, BIG_T)
+    k = torch.argmin(t, dim=-1)
+    rows = torch.arange(t.shape[0], device=t.device)
+    t_best, u_best, v_best = t[rows, k], u[rows, k], v[rows, k]
+    found = t_best < BIG_T
+    if tri_verts is not None:
+        tv = tri_verts[k]                                      # (R, 3, 3)
+        rhit, rt, ru, rv = intersect_tri(
+            origin, direction, tv[:, 0], tv[:, 1] - tv[:, 0],
+            tv[:, 2] - tv[:, 0], t_epsilon=t_epsilon * 0.5, t_max=t_max)
+        keep = found & rhit
+        t_best = torch.where(keep, rt, t_best)
+        u_best = torch.where(keep, ru, u_best)
+        v_best = torch.where(keep, rv, v_best)
+    return (t_best, torch.where(found, prim_ids[k], -1),
+            torch.where(found, u_best, 0.0), torch.where(found, v_best, 0.0))
+
+
+def intersect_aabb(origin, inv_dir, bmin, bmax, t_max=BIG_T):
+    """Slab test of broadcastable (..., 3) rays and boxes: (hit, t_near).
+    ``torch.minimum``/``maximum`` and ``amax``/``amin`` carry a NaN
+    through, as jnp's do."""
+    t1 = (bmin - origin) * inv_dir
+    t2 = (bmax - origin) * inv_dir
+    tmin = torch.minimum(t1, t2).amax(dim=-1)
+    tmax = torch.maximum(t1, t2).amin(dim=-1)
+    hit = (tmax >= torch.clamp(tmin, min=0.0)) & (tmin < t_max)
+    return hit, tmin
+
+
 def safe_inv_dir(direction):
     """1/d with the sign-preserving clamp that avoids inf*0."""
     tiny = torch.full_like(direction, 1e-12)

@@ -35,11 +35,11 @@ import torch
 
 from . import cuda_lib
 from .intersect import BIG_T, safe_inv_dir
-from .visit_intersect import (BLOCK, EXIT_EVERY, M_C, _BIGKEY,
-                              _check_inputs, _kernel_device, _pack_rays, _ptr,
-                              _stream, any_hit_driver, closest_hit_driver,
-                              launch_counts, quant_gran, quant_scale,
-                              scene_diag, slab_crossed, trace_passes)
+from .cuda_lib import check_inputs, launch_counts, ptr, stream
+from .visit_intersect import (BLOCK, EXIT_EVERY, M_C, _BIGKEY, _pack_rays,
+                              any_hit_driver, closest_hit_driver, quant_gran,
+                              quant_scale, scene_diag, slab_crossed,
+                              trace_passes)
 
 SUB = 2                 # sub-blocks per 256-ray block
 LANES = BLOCK // SUB    # rays per sub-block
@@ -137,9 +137,9 @@ def expand_children(ids, rays, bmin32, bmax32, diag, t_p: int):
             f"bad shapes: ids {tuple(ids.shape)}, rays {tuple(rays.shape)}, "
             f"child boxes {tuple(bmin32.shape)}/{tuple(bmax32.shape)} for "
             f"{t_p} parents, diag {tuple(diag.shape)}")
-    if not _kernel_device(rays):
+    if not cuda_lib.kernel_device(rays, "visit-list"):
         return expand_children_ref(ids, rays, bmin32, bmax32, diag, t_p)
-    _check_inputs(rays.device, rays=(rays, torch.float32),
+    check_inputs(rays.device, rays=(rays, torch.float32),
                   ids=(ids, torch.int32), bmin32=(bmin32, torch.float32),
                   bmax32=(bmax32, torch.float32), diag=(diag, torch.float32))
     sb, qmax = _slot_bits(cslots)
@@ -153,10 +153,10 @@ def expand_children(ids, rays, bmin32, bmax32, diag, t_p: int):
     if n == 0:
         return cids, counts, tnears
     lib = cuda_lib.load()
-    err = lib.rfw_expand(_ptr(rays), n, _ptr(ids), m_p, t_p, _ptr(bmin32),
-                         _ptr(bmax32), _ptr(scale), _ptr(gran), sb,
-                         float(qmax), float(BIG_T), _ptr(cids), _ptr(counts),
-                         _ptr(tnears), _stream(rays.device))
+    err = lib.rfw_expand(ptr(rays), n, ptr(ids), m_p, t_p, ptr(bmin32),
+                         ptr(bmax32), ptr(scale), ptr(gran), sb,
+                         float(qmax), float(BIG_T), ptr(cids), ptr(counts),
+                         ptr(tnears), stream(rays.device))
     cuda_lib.check(err, "expansion kernel")
     launch_counts["expand"] += 1
     return cids, counts, tnears
@@ -247,17 +247,17 @@ def tvisit(rays, cids, counts, tnears, wg32, wtm32, k_size: int,
             f"{tuple(cids.shape)}, counts {tuple(counts.shape)}, tnears "
             f"{tuple(tnears.shape)}, planes {tuple(wg32.shape)}, "
             f"triangle-major planes {tuple(wtm32.shape)}, k_size {k_size}")
-    if not _kernel_device(rays):
+    if not cuda_lib.kernel_device(rays, "visit-list"):
         if walked is not None:
             raise ValueError("walked visits are counted by the kernel only")
         return tvisit_ref(rays, cids, counts, tnears, wg32, k_size,
                           t_epsilon, any_hit)
-    _check_inputs(rays.device, rays=(rays, torch.float32),
+    check_inputs(rays.device, rays=(rays, torch.float32),
                   cids=(cids, torch.int32), counts=(counts, torch.int32),
                   tnears=(tnears, torch.float32),
                   planes_tm=(wtm32, torch.float32))
     if walked is not None:
-        _check_inputs(rays.device, walked=(walked, torch.int32))
+        check_inputs(rays.device, walked=(walked, torch.int32))
     if wtm32.data_ptr() % 16:
         raise ValueError("triangle-major planes must be 16-byte aligned")
     t_out = torch.empty(n, dtype=torch.float32, device=rays.device)
@@ -265,12 +265,12 @@ def tvisit(rays, cids, counts, tnears, wg32, wtm32, k_size: int,
     if n == 0:
         return t_out, slot_out
     lib = cuda_lib.load()
-    err = lib.rfw_tvisit(_ptr(rays), n, _ptr(cids), _ptr(counts),
-                         _ptr(tnears), cslots, _ptr(wtm32), wtm32.shape[0],
-                         k_size, float(t_epsilon), int(any_hit), _ptr(t_out),
-                         _ptr(slot_out),
-                         None if walked is None else _ptr(walked),
-                         _stream(rays.device))
+    err = lib.rfw_tvisit(ptr(rays), n, ptr(cids), ptr(counts),
+                         ptr(tnears), cslots, ptr(wtm32), wtm32.shape[0],
+                         k_size, float(t_epsilon), int(any_hit), ptr(t_out),
+                         ptr(slot_out),
+                         None if walked is None else ptr(walked),
+                         stream(rays.device))
     cuda_lib.check(err, "tvisit kernel")
     launch_counts["tvisit"] += 1
     return t_out, slot_out

@@ -28,12 +28,12 @@ without testing.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from . import cuda_lib
+from .cuda_lib import check_inputs, launch_counts, ptr, stream
 from .compaction import ray_sort_keys
 from .intersect import BIG_T, dot3, intersect_tri, safe_inv_dir
 
@@ -46,47 +46,8 @@ _BIGKEY = float(1 << 25)
 # FAR_BOX on every axis is out of reach of every ray with t <= BIG_T
 FAR_BOX = 1e37
 
-# launches of each kernel since the last reset (plain-version calls on
-# CPU tensors do not count); ops/tvisit_intersect.py counts its kernels
-# here too, so one reset covers every kernel of the intersectors
-launch_counts = {"enum": 0, "visit": 0, "expand": 0, "tvisit": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 def _cid_bits(t_c: int) -> int:
     return max((t_c - 1).bit_length(), 1)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _check_inputs(device, **tensors) -> None:
-    for name, (t, dtype) in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _kernel_device(t: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (run the plain version); any other device raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise RuntimeError(f"no visit-list kernels for device {t.device}")
 
 
 def _pack_rays(origins, directions, t_hi):
@@ -146,17 +107,17 @@ def block_entries(rays, bounds8, n_real: int):
                          f"bounds {tuple(bounds8.shape)}")
     if not 0 <= n_real <= t_dim:
         raise ValueError(f"real cell count {n_real} outside [0, {t_dim}]")
-    if not _kernel_device(rays):
+    if not cuda_lib.kernel_device(rays, "visit-list"):
         return block_entries_ref(rays, bounds8)
-    _check_inputs(rays.device, rays=(rays, torch.float32),
+    check_inputs(rays.device, rays=(rays, torch.float32),
                   bounds=(bounds8, torch.float32))
     out = torch.empty((n // BLOCK, t_dim), dtype=torch.float32,
                       device=rays.device)
     if n == 0:
         return out
     lib = cuda_lib.load()
-    err = lib.rfw_enum_entries(_ptr(rays), n, _ptr(bounds8), t_dim, n_real,
-                               _ptr(out), _stream(rays.device))
+    err = lib.rfw_enum_entries(ptr(rays), n, ptr(bounds8), t_dim, n_real,
+                               ptr(out), stream(rays.device))
     cuda_lib.check(err, "enum kernel")
     launch_counts["enum"] += 1
     return out
@@ -348,17 +309,17 @@ def visit(rays, ids, counts, tnears, gran: Granules, t_epsilon: float,
             f"counts {tuple(counts.shape)}, tnears {tuple(tnears.shape)}, "
             f"planes {tuple(wg.shape)}, triangle-major planes "
             f"{tuple(wtm.shape)}, super_g {g}, k_size {k}")
-    if not _kernel_device(rays):
+    if not cuda_lib.kernel_device(rays, "visit-list"):
         if walked is not None:
             raise ValueError("walked visits are counted by the kernel only")
         return visit_ref(rays, ids, counts, tnears, wg, g, k, t_epsilon,
                          any_hit)
-    _check_inputs(rays.device, rays=(rays, torch.float32),
+    check_inputs(rays.device, rays=(rays, torch.float32),
                   ids=(ids, torch.int32), counts=(counts, torch.int32),
                   tnears=(tnears, torch.float32),
                   planes_tm=(wtm, torch.float32))
     if walked is not None:
-        _check_inputs(rays.device, walked=(walked, torch.int32))
+        check_inputs(rays.device, walked=(walked, torch.int32))
     if wtm.data_ptr() % 16:
         raise ValueError("triangle-major planes must be 16-byte aligned")
     t_out = torch.empty(n, dtype=torch.float32, device=rays.device)
@@ -366,11 +327,11 @@ def visit(rays, ids, counts, tnears, gran: Granules, t_epsilon: float,
     if n == 0:
         return t_out, slot_out
     lib = cuda_lib.load()
-    err = lib.rfw_visit(_ptr(rays), n, _ptr(ids), _ptr(counts), _ptr(tnears),
-                        m_c, _ptr(wtm), wtm.shape[0], g, k, float(t_epsilon),
-                        int(any_hit), _ptr(t_out), _ptr(slot_out),
-                        None if walked is None else _ptr(walked),
-                        _stream(rays.device))
+    err = lib.rfw_visit(ptr(rays), n, ptr(ids), ptr(counts), ptr(tnears),
+                        m_c, ptr(wtm), wtm.shape[0], g, k, float(t_epsilon),
+                        int(any_hit), ptr(t_out), ptr(slot_out),
+                        None if walked is None else ptr(walked),
+                        stream(rays.device))
     cuda_lib.check(err, "visit kernel")
     launch_counts["visit"] += 1
     return t_out, slot_out

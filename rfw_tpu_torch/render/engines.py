@@ -1,16 +1,27 @@
 """Path-tracing engines implementing the EngineContext ABI (port of
-``rfw_tpu.render.engines``: ``PathTracerEngine`` and the ``wavefront``
-engine).
+``rfw_tpu.render.engines``).
 
-The wavefront engine runs the visit-list intersector on every device
-(``tvisit`` on request, through ``set_setting``): its kernels are CUDA
-on a CUDA device and their plain PyTorch versions on the CPU. Frames of
-more than one chunk go through the compacted ``WavefrontDriver``;
-single-chunk frames run the fused ``trace_sample`` (with one chunk,
-compaction cannot save work).
+* ``megakernel`` — the full path tracer on the ``bvh`` intersector, whose
+  traversal is a hand-written CUDA kernel: every chunk of a frame runs
+  the fused ``trace_sample``, all depths on fixed lanes;
+* ``bruteforce`` — the same on the O(R·T) ``brute`` intersector, the
+  oracle for tiny scenes;
+* ``direct`` — primary rays and next-event estimation only (no bounces):
+  ``megakernel`` with ``max_path_length=0`` and no Russian roulette;
+* ``wavefront`` — the visit-list intersector (``tvisit`` or any other on
+  request, through ``set_setting``): frames of more than one chunk go
+  through the compacted ``WavefrontDriver``, single-chunk frames run the
+  fused ``trace_sample`` (with one chunk, compaction cannot save work).
+
+Kernels run on a CUDA device and their plain PyTorch versions on the
+CPU. Same-topology updates take the device refit when
+``config.device_refit`` is set and the intersector is not ``bvh`` (the
+device refit leaves the wide BVH as it was), else the host refit.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -44,7 +55,7 @@ def _sync(device: torch.device) -> None:
 class PathTracerEngine(EngineContext):
     """Scene bookkeeping, device upload, accumulation and stats."""
 
-    default_intersector = "visit"
+    default_intersector = "bvh"
     use_wavefront_driver = False
 
     def __init__(self, config: RenderConfig | None = None, *,
@@ -66,8 +77,11 @@ class PathTracerEngine(EngineContext):
         self._geo_key = None
         self._anim_key = None
         self._shape_caps: dict = {}
-        # the triangle order of the last full build, for the refit
+        # host caches of the last full build, for the refits: the
+        # triangle order, the binary BVH and the shading pack
         self._perm_host: np.ndarray | None = None
+        self._bvh_host = None
+        self._pack_host: np.ndarray | None = None
         self._refits = 0
         self._device_refit = None
         self._slot_planes_dev: dict = {}
@@ -166,7 +180,7 @@ class PathTracerEngine(EngineContext):
         result, so that the first interactive move finds its device
         memory and planes in place. Engine state is unchanged; a no-op
         when the device refit would not be used."""
-        if (self._geo is None or self._dirty or not self.config.device_refit
+        if (self._geo is None or self._dirty or not self._uses_device_refit()
                 or self._perm_host is None):
             return
         instances = self._instance_list()
@@ -177,29 +191,41 @@ class PathTracerEngine(EngineContext):
                            [im.transform for im in instances])
         _sync(self.device)
 
+    def _uses_device_refit(self) -> bool:
+        """The device refit leaves the wide BVH as it was: the ``bvh``
+        intersector takes the host refit."""
+        return self.config.device_refit and self._intersector_name != "bvh"
+
     def _refit(self, instances, anim_key):
         """The same-topology update of the geometry, or None when the
-        update needs a full build (another structure, no build yet, or
-        ``max_refits`` refits since the last build). Device refits with
-        fresh Morton cells do not count towards ``max_refits``: their
-        cells never drift from the geometry."""
+        update needs a full build (another structure, no build yet,
+        ``max_refits`` refits since the last build, or no native BVH
+        refit). Device refits with fresh Morton cells do not count
+        towards ``max_refits``: their cells never drift from the
+        geometry."""
         if (self._anim_key != anim_key or self._geo is None
                 or self._perm_host is None
                 or self._refits >= self.config.max_refits):
             return None
-        if not self.config.device_refit:
-            raise NotImplementedError(
-                "the host refit (device_refit=False) is not ported to "
-                "rfw_tpu_torch: no ported intersector reads the wide BVH "
-                "it refits (ROADMAP.md, Queue 1)")
-        if self._device_refit is None:
-            self._device_refit = scene_data.make_device_refit(
-                self._geo, instances, self._perm_host, self.config)
-        geo = self._device_refit(self._device_slot_planes(instances),
-                                 [im.transform for im in instances])
-        if not self.config.device_rebuild_cells:
-            self._refits += 1
-        return geo
+        if self._uses_device_refit():
+            if self._device_refit is None:
+                self._device_refit = scene_data.make_device_refit(
+                    self._geo, instances, self._perm_host, self.config)
+            geo = self._device_refit(self._device_slot_planes(instances),
+                                     [im.transform for im in instances])
+            if not self.config.device_rebuild_cells:
+                self._refits += 1
+            return geo
+        if self._bvh_host is None:
+            return None
+        out = scene_data.refit_deformed(
+            self._geo, instances, self._perm_host, self._bvh_host,
+            self.config, self._shape_caps, pack_host=self._pack_host)
+        if out is None:
+            return None
+        self._pack_host = out.pop("_pack_host", self._pack_host)
+        self._refits += 1
+        return scene_data.scene_to_torch(out, self.device)
 
     def _aux_tables(self) -> dict:
         """Materials, lights, sky and blue noise on the device, uploaded
@@ -222,9 +248,9 @@ class PathTracerEngine(EngineContext):
     def update(self) -> None:
         """Bring the device scene up to date. The geometry changes only
         when meshes, instances or light overrides did: a same-topology
-        change (a deformed mesh, a moved instance) refits it on the
-        device, anything else builds it in full. The small tables
-        always follow the host objects."""
+        change (a deformed mesh, a moved instance) refits it (``_refit``),
+        anything else builds it in full. The small tables always follow
+        the host objects."""
         if not self._dirty:
             return
         if not self._meshes:
@@ -257,6 +283,8 @@ class PathTracerEngine(EngineContext):
                     area_light_overrides=self._light_overrides,
                     shape_caps=self._shape_caps)
                 self._perm_host = built.pop("_perm_host")
+                self._bvh_host = built.pop("_bvh_host")
+                self._pack_host = built.pop("_pack_host")
                 for k in ("materials", "lights", "atlas", "atlas_desc"):
                     built.pop(k)
                 geo = scene_data.scene_to_torch(built, self.device)
@@ -303,13 +331,16 @@ class PathTracerEngine(EngineContext):
                                for k in keys))
                 for flag, keys in _TEX_SLOTS.items()}
 
+    def _integrator_config(self) -> RenderConfig:
+        return self.config
+
     def _get_step(self, width: int, height: int):
         tex_flags = self._tex_flags()
         key = (width, height, tuple(sorted(tex_flags.items())),
                self._intersector_name)
         if self._step is not None and self._step_key == key:
             return self._step
-        cfg = self.config
+        cfg = self._integrator_config()
         intersector = make_intersector(self._intersector_name, cfg)
         n_total = width * height
         n_chunks = max(1, -(-n_total // cfg.max_rays_per_pass))
@@ -442,6 +473,32 @@ class PathTracerEngine(EngineContext):
     def get_probe_results(self):
         return self._probe_result
 
+    def validate(self) -> None:
+        """Scene invariants: finite geometry, material ids in range, the
+        wide BVH's leaf ranges and child indices in bounds."""
+        self.update()
+        s = self._scene
+        verts = s["tri_vertices"].cpu().numpy()
+        if not np.isfinite(verts).all():
+            raise ValueError("non-finite triangle vertices")
+        n_mat = s["materials"]["color"].shape[0]
+        mats = s["tri_material"].cpu().numpy()
+        if mats.min() < 0 or mats.max() >= n_mat:
+            raise ValueError(
+                f"material id out of range: [{mats.min()}, {mats.max()}] "
+                f"vs {n_mat} materials")
+        child = s["bvh"]["child"].cpu().numpy()
+        count = s["bvh"]["count"].cpu().numpy()
+        n_tri = verts.shape[0]
+        leaf = count > 0
+        if leaf.any():
+            firsts = child[leaf]
+            if firsts.min() < 0 or (firsts + count[leaf]).max() > n_tri:
+                raise ValueError("BVH leaf range out of bounds")
+        internal = (count < 0) & (child >= 0)
+        if internal.any() and child[internal].max() >= child.shape[0]:
+            raise ValueError("BVH child index out of bounds")
+
     # -- settings ------------------------------------------------------------
 
     def get_available_settings(self):
@@ -470,8 +527,32 @@ class PathTracerEngine(EngineContext):
             self._step = None
 
 
+@register_engine("bruteforce")
+class BruteForceEngine(PathTracerEngine):
+    """The exact O(R·T) tracer: the oracle for tiny scenes."""
+
+    default_intersector = "brute"
+
+
+@register_engine("megakernel")
+class MegakernelEngine(PathTracerEngine):
+    """The fused path tracer on the wide-BVH traversal kernel (the
+    inherited ``bvh`` intersector)."""
+
+
 @register_engine("wavefront")
 class WavefrontEngine(PathTracerEngine):
     """The compacted wavefront driver over the visit-list intersector."""
 
+    default_intersector = "visit"
     use_wavefront_driver = True
+
+
+@register_engine("direct")
+class DirectEngine(PathTracerEngine):
+    """Primary rays and next-event estimation only: direct light, no
+    bounces."""
+
+    def _integrator_config(self) -> RenderConfig:
+        return dataclasses.replace(self.config, max_path_length=0,
+                                   russian_roulette=False)

@@ -1,13 +1,17 @@
 """Intersectors pluggable into the integrator (port of
-``rfw_tpu.render.intersectors``; ``visit``, ``tvisit`` and ``brute`` so
-far).
+``rfw_tpu.render.intersectors``; all but ``tlas``).
 
+* ``bvh`` — per-ray stack traversal of the 4-wide BVH (ops/traverse.py),
+  a hand-written CUDA kernel; the default of every engine but
+  ``wavefront``.
 * ``visit`` — the visit-list intersector (ops/visit_intersect.py), whose
   kernels are hand-written CUDA; the wavefront engine's default.
 * ``tvisit`` — the sub-cell variant (ops/tvisit_intersect.py): scattered
   streams walk per-128-ray lists of K/4-triangle child cells; coherent
   streams go to ``visit``. Needs ``config.subcell_tables``.
 * ``brute`` — O(R·T) dense and exact; the oracle for tiny scenes.
+* ``dense`` — every ray against every cell slot's Woop matrix, plain
+  torch; an oracle for tiny scenes.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 
 from ..config import RenderConfig
 from ..ops import traverse, tvisit_intersect, visit_intersect
-from ..ops.intersect import BIG_T
+from ..ops.intersect import BIG_T, closest_hit_woop, intersect_woop
 from .integrator import Intersector
 
 
@@ -38,6 +42,55 @@ def make_brute_intersector(config: RenderConfig) -> Intersector:
         t, prim, _, _ = traverse.brute_force_closest(
             o, d, _tris_from_scene(scene), t_epsilon=config.t_epsilon)
         return (prim >= 0) & (t < dist)
+
+    return Intersector(closest, occluded)
+
+
+def make_bvh_intersector(config: RenderConfig,
+                         leaf_size: int = traverse.LEAF_SIZE) -> Intersector:
+    def closest(scene, o, d, t_max=None, sort=True, coherent=False):
+        return traverse.traverse_wide(
+            o, d, scene["bvh"], _tris_from_scene(scene),
+            leaf_size=leaf_size, t_epsilon=config.t_epsilon, t_max=t_max)
+
+    def occluded(scene, o, d, dist, sort=True, coherent=False):
+        _, prim, _, _ = traverse.traverse_wide(
+            o, d, scene["bvh"], _tris_from_scene(scene),
+            leaf_size=leaf_size, t_max=dist, t_epsilon=config.t_epsilon,
+            any_hit=True)
+        return prim >= 0
+
+    return Intersector(closest, occluded)
+
+
+def dense_woop(tl):
+    """The (T_pad, 3, 4) Woop matrix of every cell slot, read back from
+    rows 0-11 of the cell plane blocks ``wplanes`` (the exact inverse of
+    the build's ``_woop_planes``), so it follows every refit."""
+    wp = tl["wplanes"]
+    n_cells, _, k = wp.shape
+    return wp[:, :12].reshape(n_cells, 3, 4, k).permute(0, 3, 1, 2) \
+        .reshape(-1, 3, 4)
+
+
+def make_dense_intersector(config: RenderConfig) -> Intersector:
+    """Every ray against every cell slot, with a Möller–Trumbore refine
+    of the winner: exact, and economical for tiny scenes only."""
+    def closest(scene, o, d, t_max=None, sort=True, coherent=False):
+        tl = scene["treelets"]
+        woop = dense_woop(tl)
+        t, slot, u, v = closest_hit_woop(
+            o, d, woop, torch.arange(woop.shape[0], device=woop.device),
+            t_epsilon=config.t_epsilon, tri_verts=tl["verts"],
+            t_max=BIG_T if t_max is None else t_max)
+        prim = torch.where(slot >= 0,
+                           tl["slot_to_prim"][torch.clamp(slot, min=0)], -1)
+        return torch.where(prim >= 0, t, BIG_T), prim, u, v
+
+    def occluded(scene, o, d, dist, sort=True, coherent=False):
+        hit, t, _, _ = intersect_woop(o, d, dense_woop(scene["treelets"]),
+                                      t_epsilon=config.t_epsilon)
+        return (hit & (t < dist[:, None])).any(dim=-1)
 
     return Intersector(closest, occluded)
 
@@ -74,12 +127,14 @@ def make_tvisit_intersector(config: RenderConfig) -> Intersector:
 
 FACTORIES = {
     "brute": make_brute_intersector,
+    "bvh": make_bvh_intersector,
+    "dense": make_dense_intersector,
     "visit": make_visit_intersector,
     "tvisit": make_tvisit_intersector,
 }
 
 # the reference's other intersectors, ported by later PRs (ROADMAP.md)
-NOT_PORTED = ("bvh", "dense", "tlas")
+NOT_PORTED = ("tlas",)
 
 
 def make_intersector(name: str, config: RenderConfig) -> Intersector:

@@ -2,18 +2,27 @@
 host build in numpy, then ``scene_to_torch`` moves it to the device.
 
 ``build_device_scene`` flattens every instance to world space, builds
-the BVH (for its leaf-contiguous triangle order), cuts the spatial
-visit cells and packs the intersector and shading tables, with the
-``tvisit`` child-cell tables when ``config.subcell_tables`` asks for
-them. The arrays it returns equal the reference's build, array for
-array; ``build_device_scene_cached`` keeps them in a disk cache.
+the BVH (the wide BVH of the ``bvh`` intersector, and the leaf-contiguous
+triangle order), cuts the spatial visit cells and packs the intersector
+and shading tables, with the ``tvisit`` child-cell tables when
+``config.subcell_tables`` asks for them. The arrays it returns equal the
+reference's build, array for array; ``build_device_scene_cached`` keeps
+them in a disk cache.
 
-Same-topology updates (deformed meshes, moved instances) skip the build:
-``make_device_refit`` recomputes the world planes and the visit tables
-with torch ops on the scene's device, re-celling the triangles by a
-Morton sort under ``config.device_rebuild_cells``. Left out: the TLAS
-tables, the host refit (it refits the wide BVH, which no ported
-intersector reads), and tables that no ported consumer reads (the
+Same-topology updates (deformed meshes, moved instances) skip the build,
+by one of two refits:
+
+* ``make_device_refit`` recomputes the world planes and the visit tables
+  with torch ops on the scene's device, re-celling the triangles by a
+  Morton sort under ``config.device_rebuild_cells``; it leaves the wide
+  BVH as it was, so the engines do not take it under ``bvh``;
+* ``refit_deformed``, the host refit, re-transforms the planes in numpy,
+  refits the binary BVH and collapses it again, and rebuilds the cell
+  tables over their unchanged membership. Unlike rfw_tpu's, it also
+  rebuilds the ``tvisit`` child tables, which rfw_tpu's refit leaves
+  stale.
+
+Left out: the TLAS tables, and tables that no ported consumer reads (the
 per-triangle and per-slot Woop matrices, whose rows ``wplanes`` carries,
 and ``cbounds``).
 """
@@ -26,11 +35,12 @@ import functools
 import numpy as np
 import torch
 
-from ..bvh.builder import build_bvh, triangle_bounds
+from ..bvh.builder import BVH, build_bvh, triangle_bounds
 from ..bvh.wide import (SUPER_G, collapse_wide, extract_treelets,
                         spatial_treelets, subdivide_cells)
 from ..config import RenderConfig
 from ..ops.intersect import cross3, dot3, woop_matrices
+from ..ops.traverse import node_table
 from ..ops.visit_intersect import device_tables
 from ..scene.mesh import TriangleSoA
 
@@ -311,8 +321,11 @@ def build_device_scene(
             "scenes past 2^24 triangles or materials (no tri pack) are "
             "not supported by rfw_tpu_torch")
     scene["tri_pack"] = tp
-    # the triangle order of the build, for the device refit (dropped by
-    # scene_to_torch)
+    # host caches for the refits (dropped by scene_to_torch): the pack,
+    # whose invariant columns the host refit keeps, the binary BVH it
+    # refits in place, and the triangle order of the build
+    scene["_pack_host"] = tp
+    scene["_bvh_host"] = bvh
     scene["_perm_host"] = perm
     return scene
 
@@ -383,10 +396,15 @@ def _scene_cache_key(instances, config, area_light_overrides,
 
 
 def _scene_tree_split(obj, arrays: list):
-    """Numpy leaves → index markers (the arrays appended to ``arrays``)."""
+    """Numpy leaves → index markers (the arrays appended to ``arrays``);
+    a BVH becomes a tagged dict of its fields."""
     if isinstance(obj, np.ndarray):
         arrays.append(np.ascontiguousarray(obj))
         return {"__npy__": len(arrays) - 1}
+    if isinstance(obj, BVH):
+        return {"__bvh__": {f.name: _scene_tree_split(getattr(obj, f.name),
+                                                      arrays)
+                            for f in dataclasses.fields(BVH)}}
     if isinstance(obj, dict):
         return {k: _scene_tree_split(v, arrays) for k, v in obj.items()}
     return obj
@@ -396,6 +414,11 @@ def _scene_tree_join(obj, fetch):
     if isinstance(obj, dict):
         if "__npy__" in obj:
             return fetch(obj["__npy__"])
+        if "__bvh__" in obj:
+            # the host refit writes its node arrays in place: load them
+            # writable, never memory-mapped
+            return BVH(**{k: np.array(_scene_tree_join(v, fetch))
+                          for k, v in obj["__bvh__"].items()})
         return {k: _scene_tree_join(v, fetch) for k, v in obj.items()}
     return obj
 
@@ -422,8 +445,10 @@ def build_device_scene_cached(instances, materials, lights, skybox, atlas,
     """``build_device_scene`` behind a disk cache keyed by a hash of its
     sources and geometry inputs (``_scene_cache_key``). A hit loads the
     geometry arrays (memory-mapped, read-only) and attaches materials,
-    lights, sky and atlas from the arguments. A failed read or write
-    falls back to the build and leaves the cache as it was."""
+    lights, sky and atlas from the arguments; the host pack cache is the
+    loaded ``tri_pack``, which the refit copies before it writes. A
+    failed read or write falls back to the build and leaves the cache as
+    it was."""
     import json
     import os
     import shutil
@@ -443,6 +468,7 @@ def build_device_scene_cached(instances, materials, lights, skybox, atlas,
             if shape_caps is not None:
                 shape_caps.update(man["shape_caps"])
             _attach(scene, materials, lights, skybox, atlas)
+            scene["_pack_host"] = scene["tri_pack"]
             return scene
         except (OSError, KeyError, ValueError, json.JSONDecodeError):
             pass
@@ -456,7 +482,8 @@ def build_device_scene_cached(instances, materials, lights, skybox, atlas,
             arrays: list = []
             tree = _scene_tree_split(
                 {k: v for k, v in scene.items()
-                 if k not in _SCENE_ATTACH_KEYS}, arrays)
+                 if k not in _SCENE_ATTACH_KEYS and k != "_pack_host"},
+                arrays)
             os.makedirs(d, exist_ok=True)
             tmp = tempfile.mkdtemp(dir=d, prefix=".scene_tmp_")
             for i, a in enumerate(arrays):
@@ -685,6 +712,151 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
     return apply
 
 
+# the world planes a change of instance transforms or vertices rewrites
+_GEOMETRIC_PLANES = ("vertices", "normals", "gnormal", "tangent",
+                     "bitangent", "area")
+
+
+def _host(x) -> np.ndarray:
+    """A scene leaf as a numpy array: a tensor is copied to the host."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def refresh_tri_pack(pack_host: np.ndarray, planes: dict) -> np.ndarray:
+    """A copy of the host pack with its transform-dependent columns
+    (normals, gnormal, tangent, bitangent, area) taken from ``planes``;
+    the invariant ones (uv, material, lod, light index) stay."""
+    p = np.array(pack_host)
+    t = p.shape[0]
+    p[:, 0:9] = _host(planes["tri_normals"]).reshape(t, 9)
+    p[:, 15:18] = _host(planes["tri_gnormal"])
+    p[:, 18:21] = _host(planes["tri_tangent"])
+    p[:, 21:24] = _host(planes["tri_bitangent"])
+    p[:, 26] = _host(planes["tri_area"])
+    return p
+
+
+def retransform_instances(scene: dict, instances: list[InstancedMesh],
+                          perm: np.ndarray,
+                          pack_host: np.ndarray | None = None) -> dict:
+    """The scene with its geometric world planes (and the pack's
+    geometric columns) made again from ``instances`` in numpy, under the
+    build's triangle order ``perm``; every other table is the scene's.
+    The new planes and pack are numpy arrays, and the new pack is also
+    returned as ``_pack_host``."""
+    cat = _transform_triangles_all(instances)
+    out = dict(scene)
+    for k in _GEOMETRIC_PLANES:
+        out["tri_area" if k == "area" else f"tri_{k}"] = cat[k][perm]
+    if "tri_pack" in scene:
+        if pack_host is not None:
+            tp = refresh_tri_pack(pack_host, out)
+        else:
+            tp = build_tri_pack({k: _host(v) for k, v in out.items()
+                                 if k.startswith("tri_")})
+        if tp is not None:
+            out["tri_pack"] = tp
+            out["_pack_host"] = tp
+    return out
+
+
+def refit_deformed(scene: dict, instances: list[InstancedMesh],
+                   perm: np.ndarray, bvh_host: BVH, config: RenderConfig,
+                   shape_caps: dict, pack_host: np.ndarray | None = None):
+    """The host refit of a same-topology update (deformed vertices, moved
+    instances): the world planes under the build's order, the binary BVH
+    ``bvh_host`` refitted in place (native C++) and collapsed to the wide
+    BVH again, and the cell tables rebuilt over their unchanged
+    membership (``slot_to_prim`` stays, so every array keeps its shape).
+    With the ``tvisit`` child tables, those are rebuilt too, as the build
+    makes them (child boxes over the members' padded triangle bounds):
+    rfw_tpu's refit leaves them stale. ``scene`` may hold numpy arrays or
+    tensors; the tables made here are numpy, for ``scene_to_torch``.
+
+    Returns the new scene, or None when the native refit is unavailable
+    (the caller builds in full)."""
+    from ..native import native_refit_bvh
+
+    out = retransform_instances(scene, instances, perm, pack_host=pack_host)
+    verts = out["tri_vertices"]                 # (T, 3, 3), build order
+    inv_p = np.argsort(perm).astype(np.int64)
+    tmin, tmax = triangle_bounds(verts[inv_p])  # input order, for the refit
+    if not native_refit_bvh(bvh_host, tmin, tmax):
+        return None
+    wide = _pad_wide(collapse_wide(bvh_host, width=4),
+                     min_cap=shape_caps.get("bvh_nodes", 0))
+    out["bvh"] = {"bmin": wide.bmin, "bmax": wide.bmax,
+                  "child": wide.child, "count": wide.count}
+    woop = woop_matrices(verts[:, 0], verts[:, 1], verts[:, 2])
+
+    tl = dict(scene["treelets"])
+    stp = _host(tl["slot_to_prim"])
+    k = int(tl["size"])
+    n_cells = stp.shape[0] // k
+    valid = stp >= 0
+    padded_verts = np.zeros((stp.shape[0], 3, 3), np.float32)
+    padded_verts[valid] = verts[stp[valid]]
+    pad_woop = np.zeros((stp.shape[0], 3, 4), np.float32)
+    pad_woop[:, 2, 3] = 1.0
+    pad_woop[valid] = woop[stp[valid]]
+    # cell bounds over the unchanged membership, as rfw_tpu's refit makes
+    # them (the vertices' own bounds)
+    vlo = np.where(valid[:, None], padded_verts.min(axis=1), 3e37)
+    vhi = np.where(valid[:, None], padded_verts.max(axis=1), -3e37)
+    bmin_c = vlo.reshape(n_cells, k, 3).min(axis=1)
+    bmax_c = vhi.reshape(n_cells, k, 3).max(axis=1)
+    empty = bmax_c[:, 0] < bmin_c[:, 0]          # an all-pad cell
+    bmin_c[empty] = 3e37
+    bmax_c[empty] = 3e37
+    n_super = n_cells // SUPER_G
+    sbmin = bmin_c.reshape(n_super, SUPER_G, 3).min(axis=1)
+    smax_raw = np.where(bmax_c.reshape(n_super, SUPER_G, 3) > 1e37, -3e38,
+                        bmax_c.reshape(n_super, SUPER_G, 3))
+    sbmax = smax_raw.max(axis=1)
+    s_empty = sbmax[:, 0] < sbmin[:, 0]
+    sbmin[s_empty] = 3e37
+    sbmax[s_empty] = 3e37
+    tl.update({
+        "wplanes": _woop_planes(pad_woop, k, bmin_c, bmax_c),
+        "verts": padded_verts,
+        "bmin": bmin_c.astype(np.float32),
+        "bmax": bmax_c.astype(np.float32),
+        "sbmin": sbmin.astype(np.float32),
+        "sbmax": sbmax.astype(np.float32),
+        "scene_lo": tmin.min(axis=0).astype(np.float32),
+        "scene_hi": tmax.max(axis=0).astype(np.float32),
+    })
+    if _has_sub(tl):
+        tl.update(_child_tables(stp, pad_woop, verts, k))
+    out["treelets"] = tl
+    return out
+
+
+def _child_tables(stp: np.ndarray, pad_woop: np.ndarray, verts: np.ndarray,
+                  k: int) -> dict:
+    """The ``tvisit`` child tables over the slots ``stp`` as the build
+    makes them: child c is K/4 consecutive slots, boxed by its members'
+    padded triangle bounds (a far box when it has none), with its
+    lane-padded (16, 128) plane block."""
+    k4 = k // 4
+    tri_lo, tri_hi = triangle_bounds(verts)
+    sc = stp.reshape(-1, k4)
+    valid = sc >= 0
+    idx = np.maximum(sc, 0)
+    bmin32 = np.where(valid[..., None], tri_lo[idx],
+                      np.float32(3e37)).min(axis=1).astype(np.float32)
+    bmax32 = np.where(valid[..., None], tri_hi[idx],
+                      np.float32(-3e38)).max(axis=1).astype(np.float32)
+    empty = ~valid.any(axis=1)
+    bmin32[empty] = 3e37
+    bmax32[empty] = 3e37
+    wp32 = np.zeros((bmin32.shape[0], 16, 128), np.float32)
+    wp32[:, :, :k4] = _woop_planes(pad_woop, k4, bmin32, bmax32)
+    return {"bmin32": bmin32, "bmax32": bmax32, "wplanes32": wp32}
+
+
 def scene_to_torch(scene_np: dict, device) -> dict:
     """The numpy scene dict (the port's or ``rfw_tpu``'s own build) as
     tensors on ``device``: floating arrays as float32, integer arrays as
@@ -693,8 +865,9 @@ def scene_to_torch(scene_np: dict, device) -> dict:
     bit pattern, which ``ops.shade`` unpacks by shift and mask. Keys
     starting with "_" (host-side caches) are dropped; non-array leaves
     pass through. A scene with visit tables gains the kernels' derived
-    tables (``visit_intersect.device_tables``), made here once per
-    build."""
+    tables (``visit_intersect.device_tables``), and one with a wide BVH
+    the traversal kernel's node table (``traverse.node_table``), made
+    here once per build and once per host refit."""
     def conv(x, key=None):
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()
@@ -718,4 +891,6 @@ def scene_to_torch(scene_np: dict, device) -> dict:
     out = conv(scene_np)
     if "wplanes" in out.get("treelets", {}):
         out["treelets"].update(device_tables(out["treelets"]))
+    if "child" in out.get("bvh", {}):
+        out["bvh"]["nodes"] = node_table(out["bvh"])
     return out

@@ -5,8 +5,13 @@ against rfw_tpu.
 * A deformed mesh or a moved instance renders like a fresh build of the
   same geometry (RMSE < 1e-3, tests/test_refit.py's bar), through visit
   and tvisit, by the device refit, without a full build; a change of
-  topology builds in full; the host refit (``device_refit=False``) is
-  not ported and raises.
+  topology builds in full; with ``device_refit=False`` and under the
+  ``bvh`` intersector (``megakernel``), a same-topology update takes the
+  host refit, without a full build, and renders like a fresh build.
+* The host refit's tables equal rfw_tpu's ``refit_deformed`` on the same
+  inputs: the wide BVH, the planes, the pack and the cell tables; its
+  tvisit child tables equal a fresh build's where that build keeps the
+  cells, and rfw_tpu's stay as they were built.
 * ``make_device_refit``'s tables equal rfw_tpu's on the same inputs:
   the Morton order and ``slot_to_prim`` exactly, the planes, bounds and
   pack within 1e-5, but for the Woop w rows, which the port makes as
@@ -38,7 +43,9 @@ from rfw_tpu.scene.mesh import build_triangles as j_build_triangles
 
 import chip_smoke
 import rfw_tpu_torch
+from rfw_tpu_torch.bvh import triangle_bounds
 from rfw_tpu_torch.config import RenderConfig
+from rfw_tpu_torch.ops import traverse
 from rfw_tpu_torch.ops import visit_intersect as pvi
 from rfw_tpu_torch.ops.intersect import woop_matrices as p_woop
 from rfw_tpu_torch.render import RenderStatus, create_engine
@@ -191,18 +198,182 @@ def test_instance_moves_never_hit_full_build(monkeypatch, intersector):
 
 
 def test_host_refit_is_not_ported(monkeypatch):
-    """``device_refit=False`` builds as before, and a same-topology update
-    raises rather than falling back to a full build."""
+    """Checks that ``device_refit=False`` takes the host refit. (The name
+    is kept from when the host refit was not ported and this option
+    raised.) A same-topology update builds nothing, makes no device refit,
+    and renders like a fresh build."""
     eng = _engine("visit", device_refit=False)
     _scene(eng, _wavy(build_triangles))
     assert np.isfinite(_render(eng)).all()
     eng.prewarm_instance_moves()                 # a no-op, as in rfw_tpu
     assert eng._device_refit is None
     calls = _count_builds(monkeypatch)
-    eng.set_mesh(2, _wavy(build_triangles, shift=0.9))
-    with pytest.raises(NotImplementedError, match="host refit"):
-        eng.update()
+    deformed = _wavy(build_triangles, shift=0.9)
+    eng.set_mesh(2, deformed)
+    img = _render(eng)
     assert calls["n"] == 0
+    assert eng._device_refit is None and eng._refits == 1
+    monkeypatch.undo()
+    monkeypatch.setenv("RFW_NO_SCENE_CACHE", "1")
+    assert _rmse(img, _fresh("visit", deformed)) < 1e-3
+
+
+def _megakernel(**cfg_kw):
+    cfg = RenderConfig(blue_noise=False, max_path_length=1,
+                       russian_roulette=False, **cfg_kw)
+    eng = create_engine("megakernel", cfg, device="cpu")
+    ml = MaterialList()
+    ml.add(HostMaterial(color=np.array([0.7, 0.6, 0.5]), roughness=1.0))
+    eng.set_materials(ml.generate_device_materials())
+    eng.set_lights(pack_lights(
+        [], [PointLight(position=np.array([1.0, 4.0, -1.0], np.float32),
+                        radiance=np.array([30.0, 30.0, 30.0], np.float32))],
+        [], []))
+    eng.resize(40, 40)
+    return eng
+
+
+def test_megakernel_deformation_takes_host_refit(monkeypatch):
+    """Under ``bvh`` the device refit would leave the wide BVH stale: a
+    deformation and a move take the host refit (no full build), refit
+    the BVH and its node table, and render like a fresh build."""
+    eng = _megakernel()
+    _scene(eng, _wavy(build_triangles))
+    _render(eng)
+    before = eng._scene["bvh"]
+    calls = _count_builds(monkeypatch)
+    refits = []
+    real = scene_data.refit_deformed
+    monkeypatch.setattr(scene_data, "refit_deformed",
+                        lambda *a, **k: refits.append(1) or real(*a, **k))
+    deformed = _wavy(build_triangles, shift=0.9, bend=0.3)
+    eng.set_mesh(2, deformed)
+    eng.set_instance(1, 1, _move(3))
+    img = _render(eng)
+    assert calls["n"] == 0 and len(refits) == 1
+    assert eng._device_refit is None and eng._refits == 1
+    bvh = eng._scene["bvh"]
+    assert not torch.equal(bvh["bmin"], before["bmin"])
+    # the int columns are bit patterns (-1 reads as a NaN)
+    assert torch.equal(bvh["nodes"].view(torch.int32),
+                       traverse.node_table(bvh).view(torch.int32))
+    eng.validate()
+    monkeypatch.undo()
+    monkeypatch.setenv("RFW_NO_SCENE_CACHE", "1")
+    fresh = _megakernel()
+    _scene(fresh, deformed, _move(3))
+    want = _render(fresh)
+    assert _rmse(img, want) < 2e-3
+    assert img.mean() > 1e-4
+
+
+def _pair(kw, xf, cfg, j_cfg, scale=None):
+    """Both builds of ``_instances``' scene, every instance premultiplied
+    by ``scale`` when given."""
+    def inst(sd, build):
+        out = _instances(sd, build, kw, xf)
+        if scale is not None:
+            for im in out:
+                im.transform = (scale @ im.transform).astype(np.float32)
+        return out
+    ref = jax_sd.build_device_scene(inst(jax_sd, j_build_triangles), None,
+                                    None, None, None, j_cfg)
+    port = scene_data.build_device_scene(inst(scene_data, build_triangles),
+                                         None, None, None, None, cfg)
+    return ref, port, inst
+
+
+@pytest.mark.parametrize("case", ["deform", "move"])
+def test_refit_deformed_matches_reference(case):
+    """The port's host refit against rfw_tpu's on the same inputs (both
+    builds equal array for array): every table rfw_tpu's refit rewrites
+    is equal, and the child tables rfw_tpu's leaves alone are the
+    port's own."""
+    cfg = RenderConfig(subcell_tables=True)
+    j_cfg = j_config.RenderConfig(subcell_tables=True)
+    eye = np.eye(4, dtype=np.float32)
+    ref, port, _ = _pair({}, eye, cfg, j_cfg)
+    kw, xf = (({"shift": 0.7, "bend": -0.25}, eye) if case == "deform"
+              else ({}, _move(4)))
+    j_inst = _instances(jax_sd, j_build_triangles, kw, xf)
+    p_inst = _instances(scene_data, build_triangles, kw, xf)
+    caps = {"bvh_nodes": port["bvh"]["child"].shape[0]}
+    got_ref = jax_sd.refit_deformed(dict(ref), j_inst, ref["_perm_host"],
+                                    ref["_bvh_host"], j_cfg, dict(caps),
+                                    pack_host=ref["_pack_host"])
+    # the port's refit takes the device scene's tensors
+    got = scene_data.refit_deformed(
+        scene_data.scene_to_torch(port, "cpu"), p_inst, port["_perm_host"],
+        port["_bvh_host"], cfg, dict(caps), pack_host=port["_pack_host"])
+    assert got is not None and got_ref is not None
+    for key in ("bmin", "bmax", "child", "count"):
+        np.testing.assert_array_equal(got["bvh"][key], got_ref["bvh"][key],
+                                      err_msg=key)
+    assert not np.array_equal(got["bvh"]["bmin"], port["bvh"]["bmin"])
+    for key in ("tri_vertices", "tri_normals", "tri_gnormal", "tri_tangent",
+                "tri_bitangent", "tri_area", "tri_pack", "_pack_host"):
+        np.testing.assert_array_equal(got[key], got_ref[key], err_msg=key)
+    tl, tl_ref = got["treelets"], got_ref["treelets"]
+    for key in ("wplanes", "verts", "bmin", "bmax", "sbmin", "sbmax",
+                "scene_lo", "scene_hi"):
+        np.testing.assert_array_equal(tl[key], tl_ref[key], err_msg=key)
+    assert "cbounds" not in tl and "woop" not in tl
+    # rfw_tpu's child tables are the build's; the port's follow the
+    # refit: boxes around the members' padded bounds, planes from the
+    # cells' own Woop rows
+    for key in ("bmin32", "bmax32", "wplanes32"):
+        np.testing.assert_array_equal(tl_ref[key], ref["treelets"][key])
+        assert not np.array_equal(tl[key], tl_ref[key]), key
+    k4 = 32
+    n32 = tl["bmin32"].shape[0]
+    np.testing.assert_array_equal(
+        tl["wplanes32"][:, :12, :k4],
+        tl["wplanes"][:, :12].reshape(-1, 12, 4, k4).transpose(
+            0, 2, 1, 3).reshape(n32, 12, k4))
+    stp = tl["slot_to_prim"].numpy().reshape(n32, k4)
+    lo, hi = triangle_bounds(got["tri_vertices"])
+    for c in range(0, n32, 97):
+        m = stp[c][stp[c] >= 0]
+        if len(m):
+            np.testing.assert_array_equal(tl["bmin32"][c], lo[m].min(0))
+            np.testing.assert_array_equal(tl["bmax32"][c], hi[m].max(0))
+    # the scene_to_torch of the refit derives the kernels' tables anew
+    t = scene_data.scene_to_torch(got, "cpu")
+    assert torch.equal(t["treelets"]["wplanes32_tm"],
+                       pvi.device_tables(t["treelets"])["wplanes32_tm"])
+    assert torch.equal(t["bvh"]["nodes"].view(torch.int32),
+                       traverse.node_table(t["bvh"]).view(torch.int32))
+
+
+def test_refit_child_tables_equal_fresh_build():
+    """Scaling the whole scene by 2 keeps every cell's members (the kd
+    splits and the child quarters follow the centroids' order): a fresh
+    build of the scaled scene has the refit's cells, and the port's
+    refit gives its child tables exactly, where rfw_tpu's keeps the
+    unscaled ones."""
+    cfg = RenderConfig(subcell_tables=True)
+    j_cfg = j_config.RenderConfig(subcell_tables=True)
+    eye = np.eye(4, dtype=np.float32)
+    two = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)
+    ref, port, _ = _pair({}, eye, cfg, j_cfg)
+    _, fresh, inst = _pair({}, eye, cfg, j_cfg, scale=two)
+    caps = {"bvh_nodes": port["bvh"]["child"].shape[0]}
+    got = scene_data.refit_deformed(
+        dict(port), inst(scene_data, build_triangles), port["_perm_host"],
+        port["_bvh_host"], cfg, dict(caps), pack_host=port["_pack_host"])
+    got_ref = jax_sd.refit_deformed(
+        dict(ref), inst(jax_sd, j_build_triangles), ref["_perm_host"],
+        ref["_bvh_host"], j_cfg, dict(caps), pack_host=ref["_pack_host"])
+    members = [p["_perm_host"][np.maximum(p["treelets"]["slot_to_prim"], 0)]
+               for p in (port, fresh)]
+    assert np.array_equal(*members), "the scaled build cut other cells"
+    for key in ("bmin32", "bmax32", "wplanes32"):
+        np.testing.assert_array_equal(got["treelets"][key],
+                                      fresh["treelets"][key], err_msg=key)
+        np.testing.assert_array_equal(got_ref["treelets"][key],
+                                      ref["treelets"][key], err_msg=key)
+        assert not np.array_equal(got_ref["treelets"][key],
+                                  fresh["treelets"][key]), key
 
 
 def test_topology_change_forces_build(monkeypatch):
