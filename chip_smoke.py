@@ -14,7 +14,10 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    path's own 1080p streams (a primary chunk and a bounce chunk of
    518,400 lanes each): enum must be equal, visit and tvisit (built with
    --fmad=false) equal in t and slot; prints kernel and plain times
-   (CUDA events, median of 5; tvisit's plain version median of 3), each
+   (CUDA events around one launch, median of 5; tvisit's plain version
+   median of 3), each kernel's device time (20 launches queued behind a
+   device-side wait, median of 5: one launch between two events also
+   counts the wrapper's host work where that is longer), each
    kernel's bound (the larger of its FLOP at the card's FP32 peak and its
    bytes at the memory rate, counted from this run's inputs: the visits
    the exit rule walked, the real cells, the live lanes) and the
@@ -28,9 +31,18 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    (cids, counts and tnears equal) and tvisit against tvisit_ref on the
    kernel's own lists (t and slot equal, closest and any-hit), timed and
    bounded as above. The traversal kernel is held to traverse_wide_ref
-   on the same two chunks (t, prim, u and v equal, closest and any hit),
-   timed (the plain version once) and bounded by the node visits and
-   triangle tests the plain version counts on that stream;
+   bit for bit (t, prim, u and v), closest and any hit: first on edge
+   batches (the comb BVH, whose walks overflow the 64-entry stack;
+   axis-parallel rays, zero direction components and zero directions;
+   dead and NaN t_max lanes in every warp; n = 0, 1, 33 and one above
+   the kernel's resident grid), then on the same two chunks and on the
+   depth-0 fused shadow launch (2 lanes a ray, any hit), timed as the
+   others (the plain version once) and bounded by the node visits and
+   triangle tests the plain version counts on that stream over its live
+   lanes (t_max > eps) and by the bytes each lane needs (a live lane's
+   ray in, a dead lane's t_max in, every lane's hit out), with the
+   longest walk and the share of the visits a walk of every lane spent
+   on the dead ones;
 4. renders the config-2 Cornell scene and the config-3 scene
    (microfacet BSDF, a checker-textured floor through the merged
    material atlas, envmap importance sampling; 64², 8 spp, compacted
@@ -71,14 +83,20 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
 9. the megakernel slice: RenderSystem("megakernel") on phase 5's scene,
    camera and samples, timed as phase 5; the traverse counter must grow
    and enum and visit stay 0, and the frame must lie within RMSE 2e-3 of
-   phase 5's; then BASELINE config 1, RenderSystem("direct") on the
-   Cornell scene at 512², 1 spp (median of 5 frames), finite, non-black
-   and darker than megakernel's frame of the same scene and samples.
+   phase 5's; then the same scene, camera and samples through
+   RenderSystem("wavefront") on the bvh intersector (the compacted
+   driver over the traversal kernel), timed as phase 5, which must
+   launch traverse and no visit-list kernel and lie within RMSE 2e-3 of
+   the megakernel frame; then BASELINE config 1, RenderSystem("direct")
+   on the Cornell scene at 512², 1 spp (median of 5 frames), finite,
+   non-black and darker than megakernel's frame of the same scene and
+   samples.
 
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON (its
-launches from phases 5, 6 and 9), the card's name and power limit, and
+launches from phases 5, 6 and 9; ``ms`` one launch between two events,
+``device_ms`` the device time), the card's name and power limit, and
 the run's JSON result.
 
 To compare two trees on one card, run this script from an unpacked
@@ -480,10 +498,45 @@ def _median_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+SLEEP_CYCLES = 20_000_000    # a device-side wait of ~10 ms
+
+
+def _device_ms(fn, reps: int = 5, queue: int = 20) -> float:
+    """The device time of one launch of ``fn``, median of ``reps``: a
+    device-side wait (torch.cuda._sleep) holds the stream while the host
+    enqueues ``queue`` launches, which the card then runs back to back
+    between two CUDA events. ``_median_ms``'s one launch between two
+    events also counts the wrapper's host work wherever that takes longer
+    than the kernel. Fails if the host took longer to enqueue than the
+    wait lasted."""
+    import torch
+    fn()                                   # warm
+    times = []
+    for _ in range(reps):
+        w, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        w.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(queue):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        _check(host_ms < w.elapsed_time(a),
+               f"enqueueing {queue} launches took {host_ms:.2f} ms, longer "
+               f"than the device-side wait ({w.elapsed_time(a):.2f} ms)")
+        times.append(a.elapsed_time(b) / queue)
+    return float(np.median(times))
+
+
 def _streams(rs):
     """The main path's own ray streams of chunk 0 at 1080p: the primary
-    rays (depth-0 closest hit) and the depth-1 bounce rays after
-    compaction, each as (origins, directions, t_max)."""
+    rays (depth-0 closest hit), the depth-0 fused shadow launch (light
+    and envmap shadow rays, 2 lanes a ray, those not wanted at t_max 0,
+    as integrator.depth_stage builds it) and the depth-1 bounce rays
+    after compaction, each as (origins, directions, t_max)."""
     import torch
     from rfw_tpu_torch.render.integrator import make_path_state
     from rfw_tpu_torch.render.wavefront_driver import (_compact_sort_packed,
@@ -504,12 +557,26 @@ def _streams(rs):
                          pixel_cache=pc)
     primary = (st.origin, st.direction,
                torch.full((drv.chunk,), 1e30, device=eng.device))
-    out, _, _ = drv._stage(eng._scene, view, st, 0, 0, 0)
+    isect, shadow = drv._intersector, []
+
+    def occluded(scene, o, d, dist, sort=True, coherent=False):
+        if not shadow:                      # depth 0's first launch
+            shadow.append((o.contiguous(), d.contiguous(), dist))
+        return isect.occluded(scene, o, d, dist, sort=sort,
+                              coherent=coherent)
+
+    drv._intersector = isect._replace(occluded=occluded)
+    try:
+        out, _, _ = drv._stage(eng._scene, view, st, 0, 0, 0)
+    finally:
+        drv._intersector = isect
+    _check(len(shadow) == 1, "depth 0 made no occlusion launch")
     packed, live = _compact_sort_packed(eng._scene, _pack_state(out))
     b = _unpack_state(packed)
     bounce = (b.origin.contiguous(), b.direction.contiguous(),
               torch.where(b.alive, 1e30, 0.0))
-    return eng._scene, {"primary": primary, "bounce": bounce}, int(live)
+    return (eng._scene, {"primary": primary, "bounce": bounce,
+                         "shadow": shadow[0]}, int(live))
 
 
 def ptxas_report(log: str) -> dict:
@@ -610,6 +677,8 @@ def phase_kernels(rs, cfg, ptxas):
         if timed:
             enum_k = _median_ms(lambda: vi.block_entries(rays, bounds,
                                                          g.n_real))
+            enum_d = _device_ms(lambda: vi.block_entries(rays, bounds,
+                                                         g.n_real))
             enum_p = _median_ms(lambda: vi.block_entries_ref(rays, bounds))
             # the work this stream needs: a dead lane (t_max 0) crosses no
             # box
@@ -618,12 +687,15 @@ def phase_kernels(rs, cfg, ptxas):
                         4.0 * (7 * n + 6 * t_dim
                                + (n // vi.BLOCK) * t_dim))
             print(f"phase 3: enum  {name:8s} equal, kernel {enum_k:.3f} "
-                  f"ms, plain {enum_p:.3f} ms, bound {eb['bound_ms']:.3f} "
-                  f"ms ({eb['bound_by']}, {n_live} live lanes; "
-                  f"{eb['half_ms']:.3f} ms at the unfused half rate), share "
-                  f"of bound {eb['bound_ms'] / enum_k:.3f}")
+                  f"ms (device {enum_d:.3f} ms), plain {enum_p:.3f} ms, "
+                  f"bound {eb['bound_ms']:.3f} ms ({eb['bound_by']}, "
+                  f"{n_live} live lanes; {eb['half_ms']:.3f} ms at the "
+                  f"unfused half rate), share of bound "
+                  f"{eb['bound_ms'] / enum_k:.3f} (device "
+                  f"{eb['bound_ms'] / enum_d:.3f})")
             if name == "bounce":
-                report["enum"].update(ms=enum_k, plain_ms=enum_p, **eb)
+                report["enum"].update(ms=enum_k, device_ms=enum_d,
+                                      plain_ms=enum_p, **eb)
         keys, counts = vi.sort_candidates(e_k, diag, vi.M_C)
         ids, cnt, tn, _ = vi.window_candidates(keys, counts, 0, diag, vi.M_C,
                                                bounds.shape[1])
@@ -649,94 +721,191 @@ def phase_kernels(rs, cfg, ptxas):
             report["visit"]["err"] = max(report["visit"]["err"],
                                          float((t_k - t_p).abs().max()))
             ms_k = _median_ms(lambda: vi.visit(*args, g, eps, any_hit))
+            ms_d = (_device_ms(lambda: vi.visit(*args, g, eps, any_hit))
+                    if timed else None)
             ms_p = _median_ms(plain) if timed else None
             tests = float(walked.sum()) * vi.BLOCK * g.super_g * g.k_size
             vb = _bound(tests * FLOP_PER_TEST,
                         4.0 * (7 * n + 2 * n + 2 * ids.numel() + cnt.numel()
                                + g.planes_tm.numel()))
             plain_s = f"{ms_p:.3f} ms" if timed else "not timed"
+            dev_s = (f"device {ms_d:.3f} ms, share of bound "
+                     f"{vb['bound_ms'] / ms_d:.3f}" if timed
+                     else "device not timed")
             print(f"phase 3: visit {name:8s} {mode:7s} equal "
                   f"(found {float(found.float().mean()):.4f}; {g.n_real} "
                   f"real granules of {g.super_g} cells), kernel "
                   f"{ms_k:.3f} ms, plain {plain_s}, bound "
                   f"{vb['bound_ms']:.3f} ms ({vb['bound_by']}, {tests:.4g} "
                   f"tests; {vb['half_ms']:.3f} ms at the unfused half "
-                  f"rate), share of bound {vb['bound_ms'] / ms_k:.3f}")
+                  f"rate), share of bound {vb['bound_ms'] / ms_k:.3f} "
+                  f"({dev_s})")
             print(f"phase 3: visit {name:8s} {mode:7s} "
                   f"{_walked_stats(walked, cnt)}")
             if name == "bounce" and not any_hit:
-                report["visit"].update(ms=ms_k, plain_ms=ms_p, **vb)
+                report["visit"].update(ms=ms_k, device_ms=ms_d,
+                                       plain_ms=ms_p, **vb)
     return report
 
 
+def _bits_equal(a, b) -> bool:
+    """Two (t, prim, u, v) results equal bit for bit (a NaN t_max's NaN
+    t too)."""
+    import torch
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def _edge_batches(scene, primary, eps):
+    """The traversal's edge cases, as (name, bvh, triangle table,
+    origins, directions, t_max): the comb BVH, whose walks overflow the
+    64-entry stack, and batches of the slice's primary rays of n = 0, 1,
+    33 and one above the kernel's resident grid, with axis-parallel
+    directions, zero (and minus zero) components, zero directions and
+    NaN directions and origins, and t_max 1e30, 0, -1, eps, NaN and 2.5
+    mixed in every warp."""
+    import torch
+    from rfw_tpu_torch.ops import traverse
+    from rfw_tpu_torch.utils.synthetic import comb_bvh
+    dev = scene["tri_table"].device
+    wb, tris = comb_bvh()
+    comb = {k: torch.from_numpy(v).to(dev) for k, v in wb.items()}
+    comb["nodes"] = traverse.node_table(comb)
+    comb_tris = traverse.tri_table(
+        tuple(torch.from_numpy(x).to(dev) for x in tris))
+    rng = np.random.default_rng(SEED)
+    o = rng.uniform(-2.5, 2.5, (128, 3)).astype(np.float32)
+    d = rng.normal(size=(128, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = np.full(128, 1e30, np.float32)
+    tm[3::11], tm[5::11], tm[7::11] = 0.0, np.nan, -1.0
+    out = [("comb", comb, comb_tris, torch.from_numpy(o).to(dev),
+            torch.from_numpy(d).to(dev), torch.from_numpy(tm).to(dev))]
+    axes = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                         [0, 0, 1], [0, 0, -1]], dtype=torch.float32,
+                        device=dev)
+    t_pattern = torch.tensor([1e30, 0.0, 1e30, -1.0, eps, float("nan"),
+                              2.5], device=dev)
+    lanes = traverse.resident_lanes(dev)
+    for n in (0, 1, 33, lanes + 1):
+        o, d = primary[0][:n].clone(), primary[1][:n].clone()
+        k = torch.arange(n, device=dev)
+        m = k % 8 == 3
+        d[m] = axes[(k[m] // 8) % 6]
+        for lane, zero in ((5, 0.0), (6, -0.0)):
+            m = k % 8 == lane
+            d[m, (k[m] // 8) % 3] = zero
+        d[k % 32 == 7] = 0.0
+        d[k % 32 == 11, 1] = float("nan")      # NaN slabs: no box is hit
+        o[k % 32 == 13] = float("nan")
+        out.append((f"slice n={n}", scene["bvh"], scene["tri_table"], o, d,
+                    t_pattern[k % 7]))
+    return out
+
+
 def phase_traverse_kernel(rs, cfg, ptxas):
-    """The traversal kernel against traverse_wide_ref on the primary and
-    bounce chunks, closest and any hit (t, prim, u, v equal), timed and
-    bounded by the work the plain version counts on the same stream."""
+    """The traversal kernel against traverse_wide_ref, bit for bit (t,
+    prim, u, v): on the edge batches, then on the primary and bounce
+    chunks (closest and any hit) and the depth-0 fused shadow launch (any
+    hit), timed and bounded by the work the plain version counts on the
+    same stream, which walks the live lanes (t_max > eps) only."""
     import torch
     from rfw_tpu_torch.ops import traverse
     scene, streams, _ = _streams(rs)
-    bvh = scene["bvh"]
-    v = scene["tri_vertices"]
-    tris = (v[:, 0].contiguous(), (v[:, 1] - v[:, 0]).contiguous(),
-            (v[:, 2] - v[:, 0]).contiguous())
+    bvh, table = scene["bvh"], scene["tri_table"]
+    eps = float(cfg.t_epsilon)
     p = ptxas.get("traverse_kernel", {})
     print(f"phase 3: traverse_kernel ptxas: {p.get('registers')} registers, "
-          f"{p.get('stack')} B stack frame (the 64-entry stack), "
-          f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill "
-          f"stores/loads; {bvh['nodes'].shape[0]} nodes of 128 B, "
-          f"{v.shape[0]} triangles")
-    eps = float(cfg.t_epsilon)
+          f"{p.get('smem')} B shared memory, {p.get('stack')} B stack frame "
+          f"(the 64-entry stack), {p.get('spill_stores')}/"
+          f"{p.get('spill_loads')} B spill stores/loads; "
+          f"{traverse.resident_lanes(table.device)} resident lanes; "
+          f"{bvh['nodes'].shape[0]} nodes of 128 B, {table.shape[0]} "
+          f"triangles of 48 B")
+    for name, b, tris, o, d, tm in _edge_batches(scene, streams["primary"],
+                                                  eps):
+        for any_hit in (False, True):
+            mode = "any-hit" if any_hit else "closest"
+            out_k = traverse.traverse_wide(o, d, b, tris, t_max=tm,
+                                           t_epsilon=eps, any_hit=any_hit)
+            out_p = traverse.traverse_wide_ref(o, d, b, tris, t_max=tm,
+                                               t_epsilon=eps,
+                                               any_hit=any_hit)
+            torch.cuda.synchronize()
+            _check(_bits_equal(out_k, out_p),
+                   f"traverse kernel != plain on the edge batch {name} "
+                   f"{mode}")
+            print(f"phase 3: traverse edge batch {name:16s} {mode:7s} "
+                  f"equal bit for bit ({o.shape[0]} lanes, "
+                  f"{int((out_k[1] >= 0).sum())} hits)")
     report = {"err": 0.0}
-    for name in ("primary", "bounce"):
+    for name, modes in (("primary", (False, True)), ("bounce", (False, True)),
+                        ("shadow", (True,))):
         o, d, tm = streams[name]
         n = o.shape[0]
-        for any_hit in (False, True):
+        n_live = int((tm > eps).sum())
+        for any_hit in modes:
             mode = "any-hit" if any_hit else "closest"
 
             def kernel():
-                return traverse.traverse_wide(o, d, bvh, tris, t_max=tm,
+                return traverse.traverse_wide(o, d, bvh, table, t_max=tm,
                                               t_epsilon=eps, any_hit=any_hit)
 
-            work = {}
+            work, walked = {}, {}
             out_k = kernel()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            out_p = traverse.traverse_wide_ref(o, d, bvh, tris, t_max=tm,
+            out_p = traverse.traverse_wide_ref(o, d, bvh, table, t_max=tm,
                                                t_epsilon=eps,
                                                any_hit=any_hit, stats=work)
             b.record()
             torch.cuda.synchronize()
             ms_p = a.elapsed_time(b)
-            same = [torch.equal(x, y) for x, y in zip(out_k, out_p)]
             agree = float((out_k[1] == out_p[1]).float().mean())
-            _check(all(same), f"traverse kernel != plain on {name} {mode} "
-                   f"(t, prim, u, v equal: {same}; prim agreement {agree})")
+            _check(_bits_equal(out_k, out_p),
+                   f"traverse kernel != plain on {name} {mode} (prim "
+                   f"agreement {agree})")
             report["err"] = max(report["err"], float(
                 (out_k[0] - out_p[0]).abs().max()))
             ms_k = _median_ms(kernel)
-            # bytes: each ray's origin, direction and t_max in and its
-            # t, prim, u, v out; the 128 B row of each node the walk
-            # popped and the 36 B of each triangle it tested (the padded
-            # nodes and the untouched subtrees are never read)
+            ms_d = _device_ms(kernel)
+            # the walk before the exact exit: dead lanes too
+            traverse.traverse_wide_ref(o, d, bvh, table, t_max=tm,
+                                       t_epsilon=eps, any_hit=any_hit,
+                                       stats=walked, walk_dead=True)
+            dead_share = 1.0 - work["visits"] / max(walked["visits"], 1)
+            # bytes: a live lane's origin, direction and t_max in (28 B),
+            # a dead lane's t_max (4 B), every lane's t, prim, u, v out
+            # (16 B); the 128 B row of each node a live lane popped and
+            # the 36 B of each triangle it tested (padded nodes,
+            # untouched subtrees and dead lanes read none)
             nodes_read = int(work["node_seen"].sum())
             tris_read = int(work["tri_seen"].sum())
             tb = _bound(work["visits"] * 4.0 * FLOP_PER_BOX
                         + work["tests"] * float(FLOP_PER_MT),
-                        4.0 * 11 * n + 128.0 * nodes_read + 36.0 * tris_read)
+                        28.0 * n_live + 4.0 * (n - n_live) + 16.0 * n
+                        + 128.0 * nodes_read + 36.0 * tris_read)
             found = float((out_k[1] >= 0).float().mean())
-            print(f"phase 3: traverse {name:8s} {mode:7s} equal (t, prim, "
-                  f"u, v; found {found:.4f}), kernel {ms_k:.3f} ms (median "
-                  f"of 5), plain {ms_p:.1f} ms (one run), bound "
+            print(f"phase 3: traverse {name:8s} {mode:7s} equal bit for bit "
+                  f"(found {found:.4f}; {n_live} live of {n} lanes), kernel "
+                  f"{ms_k:.4f} ms (one launch, median of 5; device "
+                  f"{ms_d:.4f} ms), plain {ms_p:.1f} ms (one run), bound "
                   f"{tb['bound_ms']:.4f} ms ({tb['bound_by']}, "
-                  f"{work['visits']} node visits of {nodes_read} distinct "
-                  f"nodes, {work['tests']} triangle tests of {tris_read} "
-                  f"distinct triangles; {tb['half_ms']:.4f} ms at the "
-                  f"unfused half rate), "
-                  f"share of bound {tb['bound_ms'] / ms_k:.4f}")
+                  f"{tb['bytes']:.0f} B, {work['visits']} node visits of "
+                  f"{nodes_read} distinct nodes, {work['tests']} triangle "
+                  f"tests of {tris_read} distinct triangles; "
+                  f"{tb['half_ms']:.4f} ms at the unfused half rate), share "
+                  f"of bound {tb['bound_ms'] / ms_k:.4f} (device "
+                  f"{tb['bound_ms'] / ms_d:.4f}); longest walk "
+                  f"{work['longest']} nodes ("
+                  f"{1e3 * ms_d / max(work['longest'], 1):.2f} us a node "
+                  f"along it on the device); walking every lane (no "
+                  f"dead-lane exit) took {walked['visits']} visits, "
+                  f"{walked['tests']} tests: dead lanes' share "
+                  f"{dead_share:.4f}")
             if name == "bounce" and not any_hit:
-                report.update(ms=ms_k, plain_ms=ms_p, **tb)
+                report.update(ms=ms_k, device_ms=ms_d, plain_ms=ms_p, **tb)
     return {"traverse": report}
 
 
@@ -872,6 +1041,7 @@ def phase_tvisit_kernel(rs, cfg, ptxas):
                    f"({what}: {float((a != b).float().mean())} differ)")
         cids, ccounts, ctnears = lists
         ms_k = _median_ms(lambda: tv.expand_children(*args))
+        ms_d = _device_ms(lambda: tv.expand_children(*args))
         ms_p = _median_ms(lambda: tv.expand_children_ref(*args))
         # the work this window needs: each live lane against the real
         # children (those of a valid parent) of its block's window
@@ -885,13 +1055,15 @@ def phase_tvisit_kernel(rs, cfg, ptxas):
               f"{cids.shape[0]} sub-blocks, mean child list "
               f"{float(ccounts.float().mean()):.1f}, max "
               f"{int(ccounts.max())}; mean real child slots a window "
-              f"{float(real_b.float().mean()):.1f}), kernel {ms_k:.3f} ms, "
-              f"plain {ms_p:.3f} ms, bound {xb['bound_ms']:.4f} ms "
-              f"({xb['bound_by']}, {pairs:.4g} live (ray, child) pairs; "
-              f"{xb['half_ms']:.4f} ms at the unfused half rate), share of "
-              f"bound {xb['bound_ms'] / ms_k:.3f}")
+              f"{float(real_b.float().mean()):.1f}), kernel {ms_k:.3f} ms "
+              f"(device {ms_d:.4f} ms), plain {ms_p:.3f} ms, bound "
+              f"{xb['bound_ms']:.4f} ms ({xb['bound_by']}, {pairs:.4g} live "
+              f"(ray, child) pairs; {xb['half_ms']:.4f} ms at the unfused "
+              f"half rate), share of bound {xb['bound_ms'] / ms_k:.3f} "
+              f"(device {xb['bound_ms'] / ms_d:.3f})")
         if name == "bounce":
-            report["expand"].update(ms=ms_k, plain_ms=ms_p, **xb)
+            report["expand"].update(ms=ms_k, device_ms=ms_d, plain_ms=ms_p,
+                                    **xb)
         for any_hit in (False, True):
             targs = (rays, cids, ccounts, ctnears, wg32, wtm32, k32, eps,
                      any_hit)
@@ -909,6 +1081,7 @@ def phase_tvisit_kernel(rs, cfg, ptxas):
             report["tvisit"]["err"] = max(report["tvisit"]["err"],
                                           float((t_k - t_r).abs().max()))
             ms_k = _median_ms(lambda: tv.tvisit(*targs))
+            ms_d = _device_ms(lambda: tv.tvisit(*targs))
             ms_p = _median_ms(lambda: tv.tvisit_ref(*rargs), reps=3)
             found = float((s_k >= 0).float().mean())
             tests = float(walked.sum()) * tv.LANES * k32
@@ -916,19 +1089,24 @@ def phase_tvisit_kernel(rs, cfg, ptxas):
                         4.0 * (9 * n + 2 * cids.numel() + ccounts.numel()
                                + wtm32.numel()))
             print(f"phase 3: tvisit {name:8s} {mode:7s} equal (found "
-                  f"{found:.4f}), kernel {ms_k:.3f} ms (median of 5), plain "
-                  f"{ms_p:.3f} ms (median of 3), bound {tb['bound_ms']:.3f} "
-                  f"ms ({tb['bound_by']}, {tests:.4g} tests; "
-                  f"{tb['half_ms']:.3f} ms at the unfused half rate), share "
-                  f"of bound {tb['bound_ms'] / ms_k:.3f}")
+                  f"{found:.4f}), kernel {ms_k:.3f} ms (median of 5; device "
+                  f"{ms_d:.3f} ms), plain {ms_p:.3f} ms (median of 3), bound "
+                  f"{tb['bound_ms']:.3f} ms ({tb['bound_by']}, {tests:.4g} "
+                  f"tests; {tb['half_ms']:.3f} ms at the unfused half "
+                  f"rate), share of bound {tb['bound_ms'] / ms_k:.3f} "
+                  f"(device {tb['bound_ms'] / ms_d:.3f})")
             print(f"phase 3: tvisit {name:8s} {mode:7s} "
                   f"{_walked_stats(walked, ccounts)}")
             if name == "bounce" and not any_hit:
-                report["tvisit"].update(ms=ms_k, plain_ms=ms_p, **tb)
+                report["tvisit"].update(ms=ms_k, device_ms=ms_d,
+                                        plain_ms=ms_p, **tb)
     print(f"phase 3: tvisit chunks: {live} live bounce lanes, "
           f"{wtm32.shape[0]} children of {k32} triangles, triangle-major "
           f"child planes {tuple(wtm32.shape)}")
     return report
+
+
+SLICE_WINDOWS, WINDOW_SAMPLES = 3, 4
 
 
 def phase_slice(rs, n_tris, label, png, profile, must_launch):
@@ -941,9 +1119,9 @@ def phase_slice(rs, n_tris, label, png, profile, must_launch):
     rs.render_frame(status=RenderStatus.RESET, samples=1)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    samples, windows = 4, []
+    samples, windows = WINDOW_SAMPLES, []
     cuda_lib.reset_launch_counts()
-    for _ in range(3):
+    for _ in range(SLICE_WINDOWS):
         t0 = time.perf_counter()
         rs.render_frame_async(status=RenderStatus.CONVERGE, samples=samples)
         frame = rs.finish_frame()
@@ -1338,6 +1516,31 @@ def phase_megakernel(frame_visit, png, profile):
     del rs
     torch.cuda.empty_cache()
 
+    # the same scene, camera and samples through the compacted driver on
+    # the bvh intersector
+    rs = RenderSystem("wavefront", RenderConfig(), device="cuda")
+    rs.set_setting("intersector", "bvh")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        build_slice_scene(rs, work)
+        rs.synchronize()
+        print(f"phase 9: wavefront on bvh: scene built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    launches_w, frame_w = phase_slice(rs, n_tris, "phase 9 wavefront/bvh",
+                                      None, False, ("traverse",))
+    _check(launches_w["enum"] == 0 and launches_w["visit"] == 0,
+           f"wavefront on bvh launched visit-list kernels: {launches_w}")
+    rmse = _rmse(frame_w, frame)
+    per = SLICE_WINDOWS * WINDOW_SAMPLES
+    print(f"phase 9: wavefront on bvh: {launches_w['traverse'] / per:.2f} "
+          f"traverse launches a sample (megakernel "
+          f"{launches['traverse'] / per:.2f}); frame vs the megakernel "
+          f"frame: RMSE {rmse:.6g} (bar 2e-3), max abs difference "
+          f"{float(np.abs(frame_w - frame).max()):.6g}")
+    _check(rmse < 2e-3, f"wavefront-on-bvh frame RMSE {rmse} >= 2e-3")
+    del rs
+    torch.cuda.empty_cache()
+
     frames = {}
     for name in ("direct", "megakernel"):
         rs = make_cornell(RenderSystem(name, RenderConfig(), device="cuda"),
@@ -1452,6 +1655,7 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["err"], "ms": report[name]["ms"],
+                "device_ms": report[name]["device_ms"],
                 "plain_ms": report[name]["plain_ms"],
                 "bound_ms": report[name]["bound_ms"],
                 "bound_by": report[name]["bound_by"], "library_ms": None}

@@ -2,31 +2,56 @@
 //
 // Built by rfw_tpu_torch/ops/cuda_lib.py with the other kernels
 // (--fmad=false, IEEE division) and bound with ctypes. The entry point
-// launches on the given stream, allocates nothing and returns
+// launches on the given stream, allocates nothing (the wrapper passes the
+// ray counter, which the entry zeroes on the stream) and returns
 // cudaGetLastError().
 //
 // Replaces rfw_tpu/ops/traverse.py::traverse_wide (:58), an XLA step (a
 // vmapped while_loop with a gather per node) rather than a Pallas kernel;
-// its plain PyTorch version, traverse_wide_ref in
-// rfw_tpu_torch/ops/traverse.py, is a host loop of some 60 small ops and
-// a host sync per step. Here one thread walks one ray: the ray and its
-// best hit live in registers, the 64-entry stack in local memory (a stack
-// frame, not a spill). A node is 128 contiguous bytes of the node-major
-// table (traverse.node_table): for slot j, (bmin xyz, child) and
-// (bmax xyz, count), each one 16-byte __ldg. Triangles are read as the
-// (T, 3) rows v0, e1, e2.
+// its plain PyTorch version is traverse_wide_ref in
+// rfw_tpu_torch/ops/traverse.py.
 //
-// Bound: neither bytes nor FP32 issue. Threads of a warp walk different
-// nodes (divergence) and each node's loads depend on the pop before them
-// (latency), so most issue slots wait. A treelet-cached or packet design
-// is a later change; this kernel is the simple one, held to the plain
-// version bit for bit.
+// Bound: neither bytes nor FP32 issue but instruction issue and
+// latency. A ray pops a few nodes, each a chain of dependent loads
+// (stack, node, triangles) and a few hundred instructions, and the rays
+// of a warp walk paths of very different length. The design:
+// - persistent warps (Aila and Laine, "Understanding the Efficiency of
+//   Ray Traversal on GPUs", HPG 2009): the grid is as many blocks as the
+//   card holds resident (the occupancy query). Each warp takes rays
+//   kTraverseBatch at a time, its first batch by its index and the later
+//   ones from a global counter, one atomicAdd of its first lane a batch.
+//   Whenever kTraverseRefill lanes are idle, the idle lanes take the
+//   batch's next rays (__ballot_sync and __popc), so a lane whose ray is
+//   done is refilled and the warp is not held by its longest ray. On the
+//   1080p streams this costs more than it saves: the plain grid
+//   (kTraversePersistent=0) is faster (PERF.md);
+// - an exact exit for dead lanes: a ray with !(t_max > eps) is written as
+//   (t_max, -1, 0, 0) when it is fetched and never walks, and its lane
+//   takes another ray in the same refill. A triangle is taken only for
+//   eps < t < best.t, and best.t starts at t_max, so nothing such a ray
+//   could walk changes its result;
+// - triangles from the triangle-major table traverse.tri_table, rows
+//   (v0, .), (e1, .), (e2, .): three 16-byte loads a triangle, and a
+//   leaf's triangles are contiguous;
+// - the leaf tests of a node as one mask of (slot, triangle) bits taken
+//   in order, so the warp runs as many tests as its busiest lane, not the
+//   sum over slots of each slot's busiest lane;
+// - a box's slab test by the NaN-propagating min.NaN/max.NaN of sm_80+,
+//   one instruction each, where a select-based min and max that carries
+//   NaN as torch.minimum/maximum do takes several (measured 1.1-1.4x
+//   slower, PERF.md).
+// Measured and dropped (PERF.md): the stack's first entries in shared
+// memory, the top of a breadth-first node table in shared memory, and L1
+// prefetches of the next node, of a node's leaf rows and of a batch's
+// rays; each was slower.
+// Each part's size is a constexpr below, which
+// rfw_tpu_torch/tools/kernel_variant.py switches and times.
 //
 // Order, exactly as traverse_wide_ref (and rfw_tpu) takes it:
 // - the 4 child boxes are tested against the best t at node entry,
 //   tfar >= max(tnear, 0) && tnear < t_best && child >= 0, with NaN
-//   carried through every min and max as torch.minimum/maximum do
-//   (fminf/fmaxf would drop it);
+//   carried through every min and max as torch.minimum/maximum do (so a
+//   NaN anywhere in a box's slabs leaves it unhit);
 // - hit leaf slots in slot order, each leaf's first min(count, leaf_size)
 //   triangles in order, each against the running best with a strict <;
 // - hit internal children pushed farthest first, ties the higher slot
@@ -45,16 +70,38 @@ using rfw::safe_inv;
 
 constexpr int kStack = 64;
 constexpr int kWidth = 4;
-constexpr int kThreads = 128;
+constexpr int kMaxLeaf = 8;  // triangles a leaf slot: 8 bits of the mask
+constexpr int kTraverseThreads = 128;
+// 1: persistent blocks that take rays from the counter; 0: one thread a
+// ray over a grid of ceil(n / kTraverseThreads) blocks
+constexpr int kTraversePersistent = 1;
+// rays a warp takes at once: its first batch by its index, the later
+// ones from the counter (one atomicAdd a batch)
+constexpr int kTraverseBatch = 32;
+// idle lanes a warp gathers before it refills them (1-32; 1: a lane is
+// refilled as soon as its ray is done; 32: only when every lane is)
+constexpr int kTraverseRefill = 1;
+// 1: a dead ray (!(t_max > eps)) is written at fetch and never walks
+constexpr int kTraverseDeadExit = 1;
 
-__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fffffff); }
+constexpr unsigned kFull = 0xffffffffu;
 
-// torch.minimum / torch.maximum: NaN in, NaN out.
+static_assert(kTraverseThreads % 32 == 0, "whole warps");
+static_assert(kTraverseRefill >= 1 && kTraverseRefill <= 32, "refill");
+static_assert(kTraverseBatch >= 1, "batch");
+
+// torch.minimum / torch.maximum: NaN in, NaN out, one instruction each
+// (sm_80+). The sign of a zero result may differ from torch's; no
+// comparison sees it.
 __device__ __forceinline__ float tmin(float a, float b) {
-  return (a != a || b != b) ? nan_f() : (b < a ? b : a);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float tmax(float a, float b) {
-  return (a != a || b != b) ? nan_f() : (b > a ? b : a);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Hit {
@@ -62,31 +109,26 @@ struct Hit {
   int prim;
 };
 
-// ops/intersect.py::intersect_tri, operation for operation.
+// ops/intersect.py::intersect_tri, operation for operation, on row idx
+// of the triangle-major table.
 __device__ __forceinline__ void test_tri(float3 o, float3 d,
-                                         const float* __restrict__ v0,
-                                         const float* __restrict__ e1,
-                                         const float* __restrict__ e2,
+                                         const float4* __restrict__ tris,
                                          int idx, float eps, Hit& best) {
-  const float ax = __ldg(v0 + 3 * idx), ay = __ldg(v0 + 3 * idx + 1),
-              az = __ldg(v0 + 3 * idx + 2);
-  const float e1x = __ldg(e1 + 3 * idx), e1y = __ldg(e1 + 3 * idx + 1),
-              e1z = __ldg(e1 + 3 * idx + 2);
-  const float e2x = __ldg(e2 + 3 * idx), e2y = __ldg(e2 + 3 * idx + 1),
-              e2z = __ldg(e2 + 3 * idx + 2);
-  const float px = d.y * e2z - d.z * e2y;
-  const float py = d.z * e2x - d.x * e2z;
-  const float pz = d.x * e2y - d.y * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
+  const float4* row = tris + 3 * (size_t)idx;
+  const float4 a = __ldg(row), e1 = __ldg(row + 1), e2 = __ldg(row + 2);
+  const float px = d.y * e2.z - d.z * e2.y;
+  const float py = d.z * e2.x - d.x * e2.z;
+  const float pz = d.x * e2.y - d.y * e2.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
   const bool valid = fabsf(det) > 1e-12f;
   const float inv_det = valid ? 1.0f / det : 0.0f;
-  const float tx = o.x - ax, ty = o.y - ay, tz = o.z - az;
+  const float tx = o.x - a.x, ty = o.y - a.y, tz = o.z - a.z;
   const float u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
+  const float qx = ty * e1.z - tz * e1.y;
+  const float qy = tz * e1.x - tx * e1.z;
+  const float qz = tx * e1.y - ty * e1.x;
   const float v = (d.x * qx + d.y * qy + d.z * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  const float t = (e2.x * qx + e2.y * qy + e2.z * qz) * inv_det;
   if (valid && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
       t > eps && t < best.t) {
     best.t = t;
@@ -96,41 +138,91 @@ __device__ __forceinline__ void test_tri(float3 o, float3 d,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTraverseThreads)
 traverse_kernel(const float* __restrict__ origins,
                 const float* __restrict__ directions,
                 const float* __restrict__ t_max, int n,
                 const float4* __restrict__ nodes,
-                const float* __restrict__ v0, const float* __restrict__ e1,
-                const float* __restrict__ e2, int leaf_size, float eps,
-                int any_hit, float* __restrict__ t_out,
-                int* __restrict__ prim_out, float* __restrict__ u_out,
-                float* __restrict__ v_out) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n) return;
-  const float3 o = make_float3(origins[3 * r], origins[3 * r + 1],
-                               origins[3 * r + 2]);
-  const float3 d = make_float3(directions[3 * r], directions[3 * r + 1],
-                               directions[3 * r + 2]);
-  const float3 inv = make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-  Hit best{t_max[r], 0.0f, 0.0f, -1};
+                const float4* __restrict__ tris, int leaf_size, float eps,
+                int any_hit, int* __restrict__ counter,
+                float* __restrict__ t_out, int* __restrict__ prim_out,
+                float* __restrict__ u_out, float* __restrict__ v_out) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  // the warp's rays [pool, pool + left) (warp-uniform): a persistent
+  // warp's first batch by the warp's index, the later ones, past all the
+  // first batches, from the counter
+  const int warp = (blockIdx.x * kTraverseThreads + threadIdx.x) >> 5;
+  const int first_round =
+      kTraverseBatch * (gridDim.x * kTraverseThreads / 32);
+  int pool = (kTraversePersistent ? kTraverseBatch : 32) * warp;
+  int left = kTraversePersistent ? kTraverseBatch : 32;
+  int r = -1;               // this lane's ray, -1 when idle
+  float3 o{}, d{}, inv{};
+  Hit best{};
   int stack[kStack];
-  stack[0] = 0;
-  int ptr = 1;
-  while (ptr > 0 && !(any_hit && best.prim >= 0)) {
+  int ptr = 0;
+  for (;;) {
+    unsigned idle = __ballot_sync(kFull, r < 0);
+    // refill: idle lanes take the pool's next rays in lane order; a dead
+    // ray is written here and its lane takes another, so dead rays cost
+    // the warp no walk
+    while (pool < n &&
+           (idle == kFull || __popc(idle) >= kTraverseRefill)) {
+      const int take = min(__popc(idle), left);
+      const int rank = __popc(idle & lanes_below);
+      if (r < 0 && rank < take && pool + rank < n) {
+        const int mine = pool + rank;
+        const float tm = t_max[mine];
+        if (kTraverseDeadExit && !(tm > eps)) {
+          t_out[mine] = tm;
+          prim_out[mine] = -1;
+          u_out[mine] = 0.0f;
+          v_out[mine] = 0.0f;
+        } else {
+          r = mine;
+          o = make_float3(origins[3 * r], origins[3 * r + 1],
+                          origins[3 * r + 2]);
+          d = make_float3(directions[3 * r], directions[3 * r + 1],
+                          directions[3 * r + 2]);
+          inv = make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
+          best = Hit{tm, 0.0f, 0.0f, -1};
+          stack[0] = 0;
+          ptr = 1;
+        }
+      }
+      pool += take;
+      left -= take;
+      if (left == 0) {
+        if (kTraversePersistent) {
+          int next = 0;
+          if (lane == 0) next = atomicAdd(counter, kTraverseBatch);
+          pool = first_round + __shfl_sync(kFull, next, 0);
+          left = kTraverseBatch;
+        } else {
+          pool = n;           // a plain grid's warp has its 32 rays only
+        }
+      }
+      idle = __ballot_sync(kFull, r < 0);
+    }
+    if (idle == kFull) break;      // no rays left, and every ray written
+    if (r < 0) continue;
+
+    // one pop
     const int node = stack[min(ptr - 1, kStack - 1)];
     ptr -= 1;
     const float4* nd = nodes + (size_t)node * (2 * kWidth);
     float tnear[kWidth];
-    int child[kWidth], count[kWidth];
-    bool hit[kWidth];
+    int child[kWidth];
+    bool push[kWidth];
+    unsigned todo = 0;      // leaf tests, bit 8 j + i: slot j, triangle i
     const float t_entry = best.t;
 #pragma unroll
     for (int j = 0; j < kWidth; ++j) {
       const float4 lo = __ldg(nd + j);
       const float4 hi = __ldg(nd + kWidth + j);
       child[j] = __float_as_int(lo.w);
-      count[j] = __float_as_int(hi.w);
+      const int count = __float_as_int(hi.w);
       const float t1x = (lo.x - o.x) * inv.x, t2x = (hi.x - o.x) * inv.x;
       const float t1y = (lo.y - o.y) * inv.y, t2y = (hi.y - o.y) * inv.y;
       const float t1z = (lo.z - o.z) * inv.z, t2z = (hi.z - o.z) * inv.z;
@@ -139,21 +231,25 @@ traverse_kernel(const float* __restrict__ origins,
       const float tf =
           tmin(tmin(tmax(t1x, t2x), tmax(t1y, t2y)), tmax(t1z, t2z));
       tnear[j] = tn;
-      hit[j] = tf >= tmax(tn, 0.0f) && tn < t_entry && child[j] >= 0;
+      const bool hit =
+          tf >= tmax(tn, 0.0f) && tn < t_entry && child[j] >= 0;
+      push[j] = hit && count < 0;
+      if (hit && count > 0) {
+        const int cnt = min(count & 0x7FFFFFFF, leaf_size);
+        todo |= ((1u << cnt) - 1u) << (8 * j);
+      }
     }
-#pragma unroll
-    for (int j = 0; j < kWidth; ++j) {
-      if (!hit[j] || count[j] <= 0) continue;
-      const int cnt = min(count[j] & 0x7FFFFFFF, leaf_size);
-      for (int i = 0; i < cnt; ++i)
-        test_tri(o, d, v0, e1, e2, child[j] + i, eps, best);
+    while (todo) {
+      const int b = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int s = b >> 3;
+      const int first = s == 0 ? child[0] : s == 1 ? child[1]
+                                          : s == 2 ? child[2] : child[3];
+      test_tri(o, d, tris, first + (b & 7), eps, best);
     }
     // slot j's place in the push sequence: after every pushed slot with
     // a larger tnear, or an equal one in a higher slot
-    bool push[kWidth];
     int pos[kWidth];
-#pragma unroll
-    for (int j = 0; j < kWidth; ++j) push[j] = hit[j] && count[j] < 0;
 #pragma unroll
     for (int j = 0; j < kWidth; ++j) {
       int p = 0;
@@ -175,24 +271,72 @@ traverse_kernel(const float* __restrict__ origins,
       }
     }
     ptr += pushed;
+    if (ptr <= 0 || (any_hit && best.prim >= 0)) {
+      t_out[r] = best.t;
+      prim_out[r] = best.prim;
+      u_out[r] = best.u;
+      v_out[r] = best.v;
+      r = -1;
+    }
   }
-  t_out[r] = best.t;
-  prim_out[r] = best.prim;
-  u_out[r] = best.u;
-  v_out[r] = best.v;
+}
+
+// Blocks the card holds resident at once (the occupancy query, once a
+// device).
+int resident_blocks(int* blocks) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, traverse_kernel, kTraverseThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
+    cached[dev] = per_sm * sms;
+  }
+  *blocks = cached[dev];
+  return 0;
 }
 
 }  // namespace
 
+// Threads of the persistent grid on the current device: a batch of more
+// rays refills lanes.
+extern "C" int rfw_traverse_resident_lanes(int* lanes) {
+  int blocks = 0;
+  const int err = resident_blocks(&blocks);
+  if (err) return err;
+  *lanes = blocks * kTraverseThreads;
+  return 0;
+}
+
 extern "C" int rfw_traverse(const float* origins, const float* directions,
                             const float* t_max, int n, const float* nodes,
-                            const float* v0, const float* e1,
-                            const float* e2, int leaf_size, float eps,
-                            int any_hit, float* t_out, int* prim_out,
-                            float* u_out, float* v_out, cudaStream_t stream) {
-  const int grid = (n + kThreads - 1) / kThreads;
-  traverse_kernel<<<grid, kThreads, 0, stream>>>(
+                            const float* tris, int leaf_size, float eps,
+                            int any_hit, int* counter, float* t_out,
+                            int* prim_out, float* u_out, float* v_out,
+                            cudaStream_t stream) {
+  if (leaf_size < 1 || leaf_size > kMaxLeaf)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  int blocks = 0;
+  int err = resident_blocks(&blocks);
+  if (err) return err;
+  const int need = (n + kTraverseThreads - 1) / kTraverseThreads;
+  const int grid = kTraversePersistent ? (need < blocks ? need : blocks)
+                                       : need;
+  if (kTraversePersistent) {
+    const cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  traverse_kernel<<<grid, kTraverseThreads, 0, stream>>>(
       origins, directions, t_max, n, reinterpret_cast<const float4*>(nodes),
-      v0, e1, e2, leaf_size, eps, any_hit, t_out, prim_out, u_out, v_out);
+      reinterpret_cast<const float4*>(tris), leaf_size, eps, any_hit,
+      counter, t_out, prim_out, u_out, v_out);
   return (int)cudaGetLastError();
 }

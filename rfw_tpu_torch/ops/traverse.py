@@ -3,11 +3,11 @@
 
 ``traverse_wide`` walks the 4-wide BVH of the scene build for a batch of
 rays, closest hit or any hit: a hand-written CUDA kernel on CUDA tensors
-(``csrc/traverse_kernel.cu``, one thread per ray), and on CPU tensors its
-plain PyTorch version ``traverse_wide_ref``, which steps every live ray
-through the same fixed-stack loop in lock step. Both follow the
-reference's per-ray order exactly, so the kernel equals the plain version
-bit for bit:
+(``csrc/traverse_kernel.cu``, persistent warps that refill finished
+lanes), and on CPU tensors its plain PyTorch version
+``traverse_wide_ref``, which steps every live ray through the same
+fixed-stack loop in lock step. Both follow the reference's per-ray order
+exactly, so the kernel equals the plain version bit for bit:
 
 * a node's 4 child boxes are slab-tested against the best t at node
   entry: ``tfar >= max(tnear, 0) & tnear < t_best & child >= 0``, with
@@ -22,13 +22,21 @@ bit for bit:
   JAX's clamped scatter and gather do;
 * any hit stops after the node in which a hit was recorded.
 
-The kernel reads the node boxes from ``node_table``'s node-major table,
-derived from the build's arrays once per build and once per host refit
-(``render/scene_data.py``). Left out of the port: the reference's
-chunking of large launches (a workaround for its TPU worker).
+A dead ray, ``!(t_max > t_epsilon)``, returns ``(t_max, -1, 0, 0)``
+without a walk in both: a triangle counts only for ``eps < t < t_best``
+and ``t_best`` starts at ``t_max``, so the reference's walk of such a
+ray changes nothing.
+
+The kernel reads two tables derived from the build, once per build and
+once per refit (``render/scene_data.py``): ``node_table``'s node-major
+nodes and ``tri_table``'s triangle-major rows. Left out of the port: the
+reference's chunking of large launches (a workaround for its TPU
+worker).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -38,6 +46,7 @@ from .cuda_lib import check_inputs, launch_counts, ptr, stream
 
 STACK_DEPTH = 64
 LEAF_SIZE = 4
+MAX_LEAF_SIZE = 8       # the kernel's per-slot field of leaf tests
 
 
 def node_table(bvh) -> torch.Tensor:
@@ -50,6 +59,27 @@ def node_table(bvh) -> torch.Tensor:
     lo = torch.cat([bvh["bmin"], child[..., None]], dim=-1)
     hi = torch.cat([bvh["bmax"], count[..., None]], dim=-1)
     return torch.cat([lo, hi], dim=1).contiguous()
+
+
+def tri_edges(verts):
+    """(v0, e1, e2) of triangles ``verts`` (T, 3, 3): e1 = v1 - v0 and
+    e2 = v2 - v0, each (T, 3) in the vertices' dtype."""
+    return verts[:, 0], verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0]
+
+
+def tri_table(tris) -> torch.Tensor:
+    """The kernel's triangle-major table of ``tris`` = (v0, e1, e2), each
+    (T, 3): (T, 3, 4) float32, rows (v0, 0), (e1, 0), (e2, 0). A
+    triangle is 48 contiguous bytes, three 16-byte loads."""
+    t = torch.stack(tris, dim=1).to(torch.float32)
+    return torch.nn.functional.pad(t, (0, 1)).contiguous()
+
+
+def _split_tris(tris):
+    """(v0, e1, e2) from a ``tri_table`` or from the tuple itself."""
+    if torch.is_tensor(tris):
+        return tris[:, 0, :3], tris[:, 1, :3], tris[:, 2, :3]
+    return tris
 
 
 def _slab(lo, hi, o, inv):
@@ -68,19 +98,23 @@ def _slab(lo, hi, o, inv):
 def traverse_wide_ref(origins, directions, bvh, tris,
                       leaf_size: int = LEAF_SIZE, t_max=None,
                       t_epsilon: float = 1e-4, any_hit: bool = False,
-                      stats: dict | None = None):
+                      stats: dict | None = None, walk_dead: bool = False):
     """The plain version of ``traverse_wide``: every ray still walking
     takes one pop a step, until none is left. A leaf's triangles are
     tested in one batch against the best t at node entry, and the first
     of the nearest hits wins, which is what the sequential strict-``<``
-    updates give. ``stats``, when given, receives the work this batch
+    updates give. A dead ray (``!(t_max > t_epsilon)``) does not walk;
+    ``walk_dead`` walks it all the same, as the kernel did before its
+    exact exit, for counting the work that exit saves (the results are
+    the same). ``stats``, when given, receives the work this batch
     needed, summed over the calls that share it: ``visits`` (nodes
-    popped) and ``tests`` (triangle tests), and the masks ``node_seen``
-    (N,) and ``tri_seen`` (T,) of the nodes popped and the triangles
-    tested at least once, which are what a kernel must read."""
+    popped) and ``tests`` (triangle tests), the masks ``node_seen`` (N,)
+    and ``tri_seen`` (T,) of the nodes popped and the triangles tested at
+    least once, which are what a kernel must read, and ``longest``, the
+    most nodes one ray popped (the largest over the calls)."""
     dev = origins.device
     n = origins.shape[0]
-    v0, e1, e2 = tris
+    v0, e1, e2 = _split_tris(tris)
     w = bvh["child"].shape[1]
     t_best = (torch.full((n,), BIG_T, device=dev) if t_max is None
               else torch.broadcast_to(torch.as_tensor(
@@ -95,13 +129,14 @@ def traverse_wide_ref(origins, directions, bvh, tris,
     # the leaf tests of a node, slot-major: (slot, i) for i < leaf_size
     leaf_slot = slots.repeat_interleave(leaf_size)
     leaf_i = torch.arange(leaf_size, device=dev).repeat(w)
-    visits = tests = 0
+    visits = tests = steps = 0
     if stats is not None:
         node_seen = stats.setdefault("node_seen", torch.zeros(
             bvh["child"].shape[0], dtype=torch.bool, device=dev))
         tri_seen = stats.setdefault("tri_seen", torch.zeros(
             v0.shape[0], dtype=torch.bool, device=dev))
-    live = torch.arange(n, device=dev)
+    live = (torch.arange(n, device=dev) if walk_dead
+            else torch.nonzero(t_best > t_epsilon).flatten())
     while live.numel():
         o, inv = origins[live][:, None], inv_dir[live][:, None]
         d = directions[live]
@@ -148,6 +183,7 @@ def traverse_wide_ref(origins, directions, bvh, tris,
         ptr[live] = p + push.sum(1)
         visits += live.numel()
         tests += int(test.sum())
+        steps += 1
         if stats is not None:
             node_seen[node] = True
             tri_seen[idx[test]] = True
@@ -158,7 +194,18 @@ def traverse_wide_ref(origins, directions, bvh, tris,
     if stats is not None:
         stats["visits"] = stats.get("visits", 0) + visits
         stats["tests"] = stats.get("tests", 0) + tests
+        stats["longest"] = max(stats.get("longest", 0), steps)
     return t_best, prim, ub, vb
+
+
+def resident_lanes(device) -> int:
+    """Threads of the kernel's persistent grid on the CUDA ``device``: a
+    launch of more rays refills lanes."""
+    lanes = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        cuda_lib.check(cuda_lib.load().rfw_traverse_resident_lanes(
+            ctypes.byref(lanes)), "traverse occupancy query")
+    return lanes.value
 
 
 def traverse_wide(origins, directions, bvh, tris, leaf_size: int = LEAF_SIZE,
@@ -166,11 +213,12 @@ def traverse_wide(origins, directions, bvh, tris, leaf_size: int = LEAF_SIZE,
                   any_hit: bool = False):
     """Closest-hit (or any-hit) traversal of rays (R, 3) through the wide
     BVH ``bvh`` ({bmin, bmax} (N, 4, 3), {child, count} (N, 4) and, for
-    the kernel, ``nodes``, ``node_table``'s) over triangles ``tris`` =
-    (v0, e1, e2), each (T, 3) in the build's order. ``t_max`` is None, a
-    number or one bound per ray. Returns (t, prim, u, v): t = t_max and
-    prim = -1 on a miss. The kernel on CUDA tensors, ``traverse_wide_ref``
-    on CPU tensors."""
+    the kernel, ``nodes``, ``node_table``'s) over triangles in the
+    build's order: ``tri_table``'s (T, 3, 4) table, or the tuple (v0, e1,
+    e2) of (T, 3) arrays, of which the kernel makes that table. ``t_max``
+    is None, a number or one bound per ray. Returns (t, prim, u, v): t =
+    t_max and prim = -1 on a miss. The kernel on CUDA tensors,
+    ``traverse_wide_ref`` on CPU tensors."""
     if not cuda_lib.kernel_device(origins, "traversal"):
         return traverse_wide_ref(origins, directions, bvh, tris,
                                  leaf_size=leaf_size, t_max=t_max,
@@ -178,12 +226,17 @@ def traverse_wide(origins, directions, bvh, tris, leaf_size: int = LEAF_SIZE,
     dev = origins.device
     n = origins.shape[0]
     nodes = bvh["nodes"]
+    table = tris if torch.is_tensor(tris) else tri_table(tris)
     if (origins.shape != (n, 3) or directions.shape != (n, 3)
-            or nodes.dim() != 3 or nodes.shape[1:] != (8, 4)):
+            or nodes.dim() != 3 or nodes.shape[1:] != (8, 4)
+            or table.dim() != 3 or table.shape[1:] != (3, 4)):
         raise ValueError(f"bad shapes: origins {tuple(origins.shape)}, "
                          f"directions {tuple(directions.shape)}, nodes "
-                         f"{tuple(nodes.shape)}")
-    v0, e1, e2 = (x.contiguous() for x in tris)
+                         f"{tuple(nodes.shape)}, triangles "
+                         f"{tuple(table.shape)}")
+    if not 1 <= leaf_size <= MAX_LEAF_SIZE:
+        raise ValueError(f"leaf_size {leaf_size} outside [1, "
+                         f"{MAX_LEAF_SIZE}]")
     tm = (torch.full((n,), BIG_T, device=dev) if t_max is None
           else torch.broadcast_to(torch.as_tensor(
               t_max, dtype=torch.float32, device=dev), (n,)).contiguous())
@@ -191,19 +244,20 @@ def traverse_wide(origins, directions, bvh, tris, leaf_size: int = LEAF_SIZE,
     check_inputs(dev, origins=(origins, torch.float32),
                   directions=(directions, torch.float32),
                   t_max=(tm, torch.float32), nodes=(nodes, torch.float32),
-                  v0=(v0, torch.float32), e1=(e1, torch.float32),
-                  e2=(e2, torch.float32))
+                  triangles=(table, torch.float32))
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return t, prim, u, v
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
     err = lib.rfw_traverse(ptr(origins), ptr(directions), ptr(tm), n,
-                           ptr(nodes), ptr(v0), ptr(e1), ptr(e2),
+                           ptr(nodes), ptr(table),
                            int(leaf_size), float(t_epsilon), int(any_hit),
-                           ptr(t), ptr(prim), ptr(u), ptr(v), stream(dev))
+                           ptr(counter), ptr(t), ptr(prim), ptr(u), ptr(v),
+                           stream(dev))
     cuda_lib.check(err, "traverse kernel")
     launch_counts["traverse"] += 1
     return t, prim, u, v

@@ -25,8 +25,7 @@ from .integrator import Intersector
 
 
 def _tris_from_scene(scene):
-    v = scene["tri_vertices"]
-    return (v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    return traverse.tri_edges(scene["tri_vertices"])
 
 
 def make_brute_intersector(config: RenderConfig) -> Intersector:
@@ -48,14 +47,16 @@ def make_brute_intersector(config: RenderConfig) -> Intersector:
 
 def make_bvh_intersector(config: RenderConfig,
                          leaf_size: int = traverse.LEAF_SIZE) -> Intersector:
+    """Over the scene's derived triangle table ("tri_table"): no edges
+    or copies are made per call."""
     def closest(scene, o, d, t_max=None, sort=True, coherent=False):
         return traverse.traverse_wide(
-            o, d, scene["bvh"], _tris_from_scene(scene),
+            o, d, scene["bvh"], scene["tri_table"],
             leaf_size=leaf_size, t_epsilon=config.t_epsilon, t_max=t_max)
 
     def occluded(scene, o, d, dist, sort=True, coherent=False):
         _, prim, _, _ = traverse.traverse_wide(
-            o, d, scene["bvh"], _tris_from_scene(scene),
+            o, d, scene["bvh"], scene["tri_table"],
             leaf_size=leaf_size, t_max=dist, t_epsilon=config.t_epsilon,
             any_hit=True)
         return prim >= 0

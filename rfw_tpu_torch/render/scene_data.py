@@ -40,7 +40,7 @@ from ..bvh.wide import (SUPER_G, collapse_wide, extract_treelets,
                         spatial_treelets, subdivide_cells)
 from ..config import RenderConfig
 from ..ops.intersect import cross3, dot3, woop_matrices
-from ..ops.traverse import node_table
+from ..ops.traverse import node_table, tri_edges, tri_table
 from ..ops.visit_intersect import device_tables
 from ..scene.mesh import TriangleSoA
 
@@ -632,7 +632,8 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
     membership is rebuilt by a Morton sort of the triangles under
     ``config.device_rebuild_cells`` (then ``slot_to_prim`` changes), or
     kept as built. Either way the kernels' derived tables
-    (``visit_intersect.device_tables``) are derived again. The wide-BVH
+    (``visit_intersect.device_tables``, the triangle table
+    ``traverse.tri_table``) are derived again. The wide-BVH
     arrays are left as they were: no ported intersector reads them.
 
     Returns ``apply(slot_planes, transforms)`` → the new scene, where
@@ -672,7 +673,9 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
         e2 = verts[:, 2] - verts[:, 0]
         nrm = cross3(e1, e2)
         area = 0.5 * torch.sqrt(dot3(nrm, nrm))
-        out = {"tri_vertices": verts, "tri_normals": cat["normals"],
+        out = {"tri_vertices": verts,
+               "tri_table": tri_table((verts[:, 0], e1, e2)),
+               "tri_normals": cat["normals"],
                "tri_gnormal": cat["gnormal"], "tri_tangent": cat["tangent"],
                "tri_bitangent": cat["bitangent"], "tri_area": area}
         if rebuild_cells:
@@ -744,12 +747,15 @@ def retransform_instances(scene: dict, instances: list[InstancedMesh],
     """The scene with its geometric world planes (and the pack's
     geometric columns) made again from ``instances`` in numpy, under the
     build's triangle order ``perm``; every other table is the scene's.
-    The new planes and pack are numpy arrays, and the new pack is also
-    returned as ``_pack_host``."""
+    The new planes, the traversal kernel's triangle table derived from
+    them (``traverse.tri_table``) and the pack are numpy arrays, and the
+    new pack is also returned as ``_pack_host``."""
     cat = _transform_triangles_all(instances)
     out = dict(scene)
     for k in _GEOMETRIC_PLANES:
         out["tri_area" if k == "area" else f"tri_{k}"] = cat[k][perm]
+    out["tri_table"] = tri_table(
+        tri_edges(torch.from_numpy(out["tri_vertices"]))).numpy()
     if "tri_pack" in scene:
         if pack_host is not None:
             tp = refresh_tri_pack(pack_host, out)
@@ -865,9 +871,11 @@ def scene_to_torch(scene_np: dict, device) -> dict:
     bit pattern, which ``ops.shade`` unpacks by shift and mask. Keys
     starting with "_" (host-side caches) are dropped; non-array leaves
     pass through. A scene with visit tables gains the kernels' derived
-    tables (``visit_intersect.device_tables``), and one with a wide BVH
-    the traversal kernel's node table (``traverse.node_table``), made
-    here once per build and once per host refit."""
+    tables (``visit_intersect.device_tables``), one with a wide BVH the
+    traversal kernel's node table (``traverse.node_table``) and one with
+    triangles its triangle table (``traverse.tri_table``, "tri_table";
+    the host refit brings its own, ``retransform_instances``'), made here
+    once per build and once per host refit."""
     def conv(x, key=None):
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()
@@ -893,4 +901,6 @@ def scene_to_torch(scene_np: dict, device) -> dict:
         out["treelets"].update(device_tables(out["treelets"]))
     if "child" in out.get("bvh", {}):
         out["bvh"]["nodes"] = node_table(out["bvh"])
+    if "tri_vertices" in out and "tri_table" not in out:
+        out["tri_table"] = tri_table(tri_edges(out["tri_vertices"]))
     return out

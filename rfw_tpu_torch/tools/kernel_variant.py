@@ -2,19 +2,24 @@
 
     python3 -m rfw_tpu_torch.tools.kernel_variant KERNEL NAME=VALUE [...]
 
-Run from the repository root. KERNEL is ``enum``, ``expand`` or
-``tvisit``. The variant is a copy of ``csrc/`` in which each named
-``constexpr int NAME = ...;`` takes the given value (for example
-``enum kEnumCells=1``: one cell a thread; ``tvisit kTvisitRays=1``: one
-ray a thread; ``expand kExpandSlots=2``: two child slots a thread). The
-script builds both libraries, builds chip_smoke.py's 1080p slice scene
-(switched to the tvisit intersector for ``expand`` and ``tvisit``) and
-takes its phase-3 streams (a primary chunk and a bounce chunk). On each
+Run from the repository root. KERNEL is ``enum``, ``expand``,
+``tvisit`` or ``traverse``. The variant is a copy of ``csrc/`` in which
+each named ``constexpr int NAME = ...;`` takes the given value (for
+example ``enum kEnumCells=1``: one cell a thread; ``tvisit
+kTvisitRays=1``: one ray a thread; ``expand kExpandSlots=2``: two child
+slots a thread; ``traverse kTraversePersistent=0``: one thread a ray
+over a plain grid). The script builds both libraries, builds chip_smoke.py's
+1080p slice scene (switched to the tvisit intersector for ``expand`` and
+``tvisit``) and takes its phase-3 streams (a primary chunk and a bounce
+chunk; for ``traverse`` also the depth-0 fused shadow launch). On each
 stream it holds each library's kernel to its plain version (equal; for
 ``expand`` and ``tvisit`` on pass 0's parent window, tvisit on the plain
-expansion's lists, closest hit) and times them in alternation, built,
-variant, variant, built (CUDA events, median of 5 each). The last line
-is one JSON object with the times and both kernels' ptxas reports.
+expansion's lists, closest hit; ``traverse`` closest and any hit on the
+two chunks, any hit on the shadow launch, bit for bit) and times them in
+alternation, built, variant, variant, built (CUDA events, median of 5
+each; for ``traverse`` the device time of 20 launches queued behind a
+device-side wait, chip_smoke._device_ms). The last line is one JSON
+object with the times and both kernels' ptxas reports.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from ..ops import cuda_lib
 
-KERNELS = ("enum", "expand", "tvisit")
+KERNELS = ("enum", "expand", "tvisit", "traverse")
 
 
 def variant_sources(consts: dict, out_dir: str) -> tuple:
@@ -73,15 +78,30 @@ def _equal(a, b) -> bool:
 
 def _cases(kernel: str, rs, cfg, chip_smoke) -> dict:
     """Per stream: (launch, plain result, note) for the named kernel."""
+    from ..ops import traverse
     from ..ops import tvisit_intersect as tv
     from ..ops import visit_intersect as vi
-    if kernel != "enum":
+    if kernel in ("expand", "tvisit"):
         rs.set_setting("intersector", "tvisit")
     scene, streams, _ = chip_smoke._streams(rs)
     tl = scene["treelets"]
     diag = vi.scene_diag(tl)
     cases = {}
-    for name, (o, d, tm) in streams.items():
+    if kernel == "traverse":
+        eps = float(cfg.t_epsilon)
+        for name, any_hit in (("primary", False), ("primary", True),
+                              ("bounce", False), ("bounce", True),
+                              ("shadow", True)):
+            o, d, tm = streams[name]
+            args = (o, d, scene["bvh"], scene["tri_table"])
+            kw = {"t_max": tm, "t_epsilon": eps, "any_hit": any_hit}
+            cases[f"{name} {'any-hit' if any_hit else 'closest'}"] = (
+                (lambda a=args, k=kw: traverse.traverse_wide(*a, **k)),
+                traverse.traverse_wide_ref(*args, **kw),
+                f"{int((tm > eps).sum())} live lanes")
+        return cases
+    for name in ("primary", "bounce"):
+        o, d, tm = streams[name]
         rays = vi._pack_rays(o, d, tm)
         note = f"{int((tm > 0).sum())} live lanes"
         if kernel == "enum":
@@ -127,6 +147,9 @@ def main(argv) -> int:
             consts, os.path.join(cuda_lib.BUILD_DIR, "variant_src")))):
         libs[which], log = _load(sources)
         ptxas[which] = chip_smoke.ptxas_report(log).get(f"{kernel}_kernel")
+        if kernel == "traverse":       # its persistent grid
+            from ..ops import traverse
+            ptxas[which]["lanes"] = traverse.resident_lanes("cuda")
         print(f"{which}: {kernel}_kernel ptxas {ptxas[which]}")
 
     cuda_lib._lib = libs["built"]
@@ -135,6 +158,10 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as work:
         chip_smoke.build_slice_scene(rs, work)
         rs.synchronize()
+    # traverse's launch is shorter than its wrapper's host work: its
+    # device time, from queued launches
+    timer = (chip_smoke._device_ms if kernel == "traverse"
+             else chip_smoke._median_ms)
     times = {}
     for name, (run, ref, note) in _cases(kernel, rs, cfg,
                                          chip_smoke).items():
@@ -143,7 +170,7 @@ def main(argv) -> int:
             cuda_lib._lib = libs[which]
             chip_smoke._check(_equal(run(), ref),
                               f"{which} {kernel} kernel != plain on {name}")
-            times[name][which].append(chip_smoke._median_ms(run))
+            times[name][which].append(timer(run))
         print(f"{name}: {kernel} built {times[name]['built']} ms, variant "
               f"{times[name]['variant']} ms ({note})")
     print(json.dumps({"kernel": kernel, "variant": consts, "ms": times,

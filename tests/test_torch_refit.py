@@ -257,6 +257,8 @@ def test_megakernel_deformation_takes_host_refit(monkeypatch):
     # the int columns are bit patterns (-1 reads as a NaN)
     assert torch.equal(bvh["nodes"].view(torch.int32),
                        traverse.node_table(bvh).view(torch.int32))
+    assert torch.equal(eng._scene["tri_table"], traverse.tri_table(
+        traverse.tri_edges(eng._scene["tri_vertices"])))
     eng.validate()
     monkeypatch.undo()
     monkeypatch.setenv("RFW_NO_SCENE_CACHE", "1")
@@ -529,6 +531,49 @@ def test_make_device_refit_tables_match_reference(case):
         assert not torch.equal(tl[key], port["treelets"][key]), key
     assert tl["n_cells"] == derived["n_cells"] == -(-n_tris // 128)
     assert tl["n_super"] == derived["n_super"]
+
+
+@pytest.mark.parametrize("path", ["retransform", "host", "device"])
+def test_tri_table_is_derived_again_after_refit(path):
+    """The traversal kernel's triangle table follows the vertices through
+    ``retransform_instances``, the host refit (through ``scene_to_torch``)
+    and the device refit: it is the table of the new vertices, not the
+    build's, and row for row a fresh build's of the same geometry
+    (within 1e-5 after the device refit, whose transforms are torch's
+    separate products; exactly after the host's numpy)."""
+    cfg = RenderConfig()
+    eye = np.eye(4, dtype=np.float32)
+    built = scene_data.build_device_scene(
+        _instances(scene_data, build_triangles, {}, eye), None, None, None,
+        None, cfg)
+    scene = scene_data.scene_to_torch(built, "cpu")
+    inst = _instances(scene_data, build_triangles,
+                      {"shift": 0.7, "bend": -0.25}, _move(3))
+    perm = built["_perm_host"]
+    if path == "retransform":
+        out = scene_data.retransform_instances(scene, inst, perm)
+        table = torch.from_numpy(out["tri_table"])
+    elif path == "host":
+        caps = {"bvh_nodes": built["bvh"]["child"].shape[0]}
+        out = scene_data.scene_to_torch(scene_data.refit_deformed(
+            scene, inst, perm, built["_bvh_host"], cfg, caps,
+            pack_host=built["_pack_host"]), "cpu")
+        table = out["tri_table"]
+    else:
+        out = scene_data.make_device_refit(scene, inst, perm, cfg)(
+            _slot_planes(inst, True), [im.transform for im in inst])
+        table = out["tri_table"]
+    verts = torch.as_tensor(out["tri_vertices"])
+    assert table.shape == (verts.shape[0], 3, 4)
+    assert torch.equal(table, traverse.tri_table(traverse.tri_edges(verts)))
+    assert not torch.equal(table, scene["tri_table"])
+    fresh = scene_data.build_device_scene(inst, None, None, None, None, cfg)
+    want = scene_data.scene_to_torch(fresh, "cpu")["tri_table"]
+    rows = torch.from_numpy(np.argsort(fresh["_perm_host"])[perm])
+    if path == "device":
+        torch.testing.assert_close(table, want[rows], rtol=0, atol=1e-5)
+    else:
+        assert torch.equal(table, want[rows])
 
 
 def test_build_device_scene_cached_equals_uncached(tmp_path, monkeypatch):

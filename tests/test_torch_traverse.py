@@ -31,8 +31,10 @@ from rfw_tpu_torch.ops import cuda_lib
 from rfw_tpu_torch.ops import intersect as p_intersect
 from rfw_tpu_torch.ops import traverse
 from rfw_tpu_torch.render import scene_data
-from rfw_tpu_torch.render.intersectors import dense_woop
+from rfw_tpu_torch.render.intersectors import (_tris_from_scene, dense_woop,
+                                               make_bvh_intersector)
 from rfw_tpu_torch.scene.mesh import build_triangles
+from rfw_tpu_torch.utils import synthetic
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -45,11 +47,7 @@ def _one_thread():
 
 def random_tris(n=500, seed=3, spread=4.0):
     """tests/test_bvh.py's triangle soup."""
-    rng = np.random.default_rng(seed)
-    v0 = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
-    v1 = v0 + rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
-    v2 = v0 + rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
-    return np.stack([v0, v1, v2], axis=1)
+    return synthetic.tri_soup(n, seed, spread)
 
 
 def random_rays(r, seed=10, spread=6.0):
@@ -74,36 +72,10 @@ def soup_bvh(n, seed):
 
 
 def deep_bvh(levels=40, seed=5):
-    """A comb of ``levels`` wide nodes whose boxes all hold every ray's
-    path: node i's slot 0 is node i + 1, slots 1-3 are internal nodes
-    with four one- to three-triangle leaves. Every slot's box is the
-    same, so a ray pushes all four children of every comb node, pops
-    slot 0 first (equal tnear, lowest slot) and the stack (3 more
-    entries a level) overflows its 64 entries."""
-    rng = np.random.default_rng(seed)
-    n_nodes = levels * 4
-    child = np.full((n_nodes, 4), -1, np.int32)
-    count = np.full((n_nodes, 4), -1, np.int32)
-    first = 0
-    side = levels
-    for i in range(levels):
-        if i + 1 < levels:
-            child[i, 0] = i + 1
-        for s in (1, 2, 3):
-            dead_end = side
-            side += 1
-            child[i, s] = dead_end
-            for j in range(4):
-                c = int(rng.integers(1, 4))
-                child[dead_end, j] = first
-                count[dead_end, j] = c
-                first += c
-    verts = random_tris(first, seed=seed, spread=3.0)
-    lo = np.full((n_nodes, 4, 3), -5.0, np.float32)
-    hi = np.full((n_nodes, 4, 3), 5.0, np.float32)
-    wb = {"bmin": lo, "bmax": hi, "child": child, "count": count}
-    tris = (verts[:, 0], verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
-    return wb, tris
+    """``synthetic.comb_bvh``: every ray pushes all four children of
+    every comb node, and the stack (3 more entries a level) overflows its
+    64 entries."""
+    return synthetic.comb_bvh(levels, seed)
 
 
 def _both(wb, tris, o, d, **kw):
@@ -234,6 +206,10 @@ def test_traverse_ref_stats_count_distinct_work():
         traverse.traverse_wide_ref(o[h], d[h], wt, tt, stats=halves)
     assert halves["visits"] == one["visits"]
     assert halves["tests"] == one["tests"]
+    # the longest walk lies in one of the halves, and a maximum lies
+    # between the mean and the sum
+    assert halves["longest"] == one["longest"]
+    assert one["visits"] / 128 <= one["longest"] < one["visits"]
     assert torch.equal(halves["node_seen"], one["node_seen"])
     assert torch.equal(halves["tri_seen"], one["tri_seen"])
     nodes, tris = one["node_seen"], one["tri_seen"]
@@ -244,9 +220,13 @@ def test_traverse_ref_stats_count_distinct_work():
     assert 0 < int(tris.sum()) < one["tests"]
 
 
+def _torch(wb):
+    return {k: torch.from_numpy(v) for k, v in wb.items()}
+
+
 def test_node_table_layout():
     wb, _ = soup_bvh(300, seed=6)
-    wt = {k: torch.from_numpy(v) for k, v in wb.items()}
+    wt = _torch(wb)
     nodes = traverse.node_table(wt)
     assert nodes.shape == (wb["child"].shape[0], 8, 4) and nodes.is_contiguous()
     assert torch.equal(nodes[:, :4, :3], wt["bmin"])
@@ -255,6 +235,110 @@ def test_node_table_layout():
                        wt["child"])
     assert torch.equal(nodes[:, 4:, 3].contiguous().view(torch.int32),
                        wt["count"])
+
+
+def test_tri_table_layout():
+    """Rows (v0, 0), (e1, 0), (e2, 0) a triangle, the edges bit for bit
+    the intersectors' own (``_tris_from_scene``), and the plain version
+    given the table walks as given the tuple."""
+    verts = torch.from_numpy(random_tris(300, seed=11))
+    edges = _tris_from_scene({"tri_vertices": verts})
+    table = traverse.tri_table(edges)
+    assert table.shape == (300, 3, 4) and table.dtype == torch.float32
+    assert table.is_contiguous()
+    for i, x in enumerate(edges):
+        assert torch.equal(table[:, i, :3], x)
+    assert torch.equal(table[..., 3], torch.zeros(300, 3))
+    assert torch.equal(edges[1], verts[:, 1] - verts[:, 0])
+    assert torch.equal(edges[2], verts[:, 2] - verts[:, 0])
+    wb, tris = soup_bvh(300, seed=11)
+    tt = tuple(torch.from_numpy(x) for x in tris)
+    o, d = (torch.from_numpy(x) for x in random_rays(128, seed=5))
+    a = traverse.traverse_wide_ref(o, d, _torch(wb), tt)
+    b = traverse.traverse_wide(o, d, _torch(wb), traverse.tri_table(tt))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_dead_lanes_return_t_max(any_hit):
+    """Lanes with t_max 0, negative, eps or NaN, mixed with live ones in
+    one batch, come back (t_max, -1, 0, 0) without a walk; walking them
+    anyway (``walk_dead``) changes no result, only the work counted."""
+    wb, tris = soup_bvh(400, seed=4)
+    wt, tt = _torch(wb), tuple(torch.from_numpy(x) for x in tris)
+    o, d = (torch.from_numpy(x) for x in random_rays(200, seed=12))
+    eps = 1e-4
+    t_max = torch.full((200,), 1e30)
+    dead = torch.arange(200) % 5 != 0
+    pattern = torch.tensor([0.0, -2.5, eps, float("nan")])
+    t_max[dead] = pattern[torch.arange(int(dead.sum())) % 4]
+    # the origins of some dead lanes inside the root's boxes: the walk
+    # before the exit popped nodes for them
+    o[dead] *= 0.1
+    one, every = {}, {}
+    got = traverse.traverse_wide_ref(o, d, wt, tt, t_max=t_max,
+                                     t_epsilon=eps, any_hit=any_hit,
+                                     stats=one)
+    walked = traverse.traverse_wide_ref(o, d, wt, tt, t_max=t_max,
+                                        t_epsilon=eps, any_hit=any_hit,
+                                        stats=every, walk_dead=True)
+    for x, y in zip(got, walked):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    t, prim, u, v = got
+    assert torch.equal(t[dead].view(torch.int32),
+                       t_max[dead].view(torch.int32))
+    assert (prim[dead] == -1).all()
+    assert (u[dead] == 0).all() and (v[dead] == 0).all()
+    assert bool((prim[~dead] >= 0).any())
+    assert every["visits"] > one["visits"] > 0
+    # the live lanes alone do the same work as in the mixed batch
+    alone = {}
+    traverse.traverse_wide_ref(o[~dead], d[~dead], wt, tt,
+                               t_max=t_max[~dead], t_epsilon=eps,
+                               any_hit=any_hit, stats=alone)
+    assert alone["visits"] == one["visits"]
+    assert alone["tests"] == one["tests"]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_intersector_matches_rfw_tpu(any_hit):
+    """The ``bvh`` intersector over a port build's derived tables (the
+    node table and "tri_table") against rfw_tpu's ``traverse_wide`` on
+    rfw_tpu's own build of the same triangles, with live, dead and
+    bounded lanes."""
+    from rfw_tpu import config as j_config
+    from rfw_tpu.scene.mesh import build_triangles as j_build
+    rng = np.random.default_rng(21)
+    pos = rng.uniform(-2, 2, (600, 3)).astype(np.float32)
+    faces = rng.integers(0, 600, (500, 3)).astype(np.int32)
+    ref = jax_sd.build_device_scene(
+        [jax_sd.InstancedMesh(j_build(pos, faces),
+                              np.eye(4, dtype=np.float32), 0, 0)],
+        None, None, None, None, j_config.RenderConfig())
+    port = scene_data.scene_to_torch(scene_data.build_device_scene(
+        [scene_data.InstancedMesh(build_triangles(pos, faces),
+                                  np.eye(4, dtype=np.float32), 0, 0)],
+        None, None, None, None, RenderConfig()), "cpu")
+    assert np.array_equal(port["tri_vertices"].numpy(), ref["tri_vertices"])
+    o, d = random_rays(256, seed=22, spread=3.0)
+    t_max = rng.uniform(0.5, 8.0, 256).astype(np.float32)
+    t_max[::7] = 0.0
+    isect = make_bvh_intersector(RenderConfig())
+    v = ref["tri_vertices"]
+    j_tris = tuple(jnp.asarray(x) for x in
+                   (v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]))
+    want = j_traverse.traverse_wide(
+        jnp.asarray(o), jnp.asarray(d),
+        {k: jnp.asarray(x) for k, x in ref["bvh"].items()}, j_tris,
+        leaf_size=4, t_max=jnp.asarray(t_max), any_hit=any_hit)
+    o, d, tm = (torch.from_numpy(x) for x in (o, d, t_max))
+    if any_hit:
+        got = isect.occluded(port, o, d, tm)
+        assert np.array_equal(got.numpy(), np.asarray(want[1]) >= 0)
+        assert got.any()
+        return
+    got = isect.closest(port, o, d, tm)
+    _assert_close([np.asarray(x) for x in want], [x.numpy() for x in got])
 
 
 def test_traverse_wrapper_runs_plain_on_cpu_only():
