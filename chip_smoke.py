@@ -34,10 +34,11 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    bit for bit (t, prim, u and v), closest and any hit: first on edge
    batches (the comb BVH, whose walks overflow the 64-entry stack;
    axis-parallel rays, zero direction components and zero directions;
-   dead and NaN t_max lanes in every warp; n = 0, 1, 33 and one above
-   the kernel's resident grid), then on the same two chunks and on the
-   depth-0 fused shadow launch (2 lanes a ray, any hit), timed as the
-   others (the plain version once) and bounded by the node visits and
+   dead and NaN t_max lanes in every warp; n = 0, 1, 33, one above a
+   block of the kernel and one above 512 blocks), then on the same two
+   chunks and on the depth-0 fused shadow launch (2 lanes a ray, any
+   hit), timed as the others (the plain version once) and bounded by the
+   node visits and
    triangle tests the plain version counts on that stream over its live
    lanes (t_max > eps) and by the bytes each lane needs (a live lane's
    ray in, a dead lane's t_max in, every lane's hit out), with the
@@ -90,12 +91,29 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    the megakernel frame; then BASELINE config 1, RenderSystem("direct")
    on the Cornell scene at 512², 1 spp (median of 5 frames), finite,
    non-black and darker than megakernel's frame of the same scene and
-   samples.
+   samples;
+10. the instanced slice on the tlas intersector: phase 5's world
+   geometry with the spheres as 60 instances of one icosphere PLY (3
+   BLASes under 62 instances) on one RenderSystem("wavefront"), 4 spp
+   through bvh, then the switch to tlas (a full build with the BLASes,
+   timed) and 4 spp, within RMSE 2e-3 of the bvh frame; on the chunk-0
+   streams the tlas intersector's traverse launches (one a BLAS and
+   stream, with culled lanes) bit for bit against traverse_wide_ref,
+   and its hits against the bvh intersector's (at most 2e-5 of a
+   stream's lanes apart); the tlas slice timed as phase 5 (traverse must launch, no visit-list kernel), its
+   per-depth split, the traverse launches a sample and the touched
+   instances per intersector call; a 1-spp frame raw and denoised
+   against the slice's converged frame (the denoised one must be
+   closer; the denoise timed between CUDA events), FXAA (finite, in [0,
+   1], timed); then 8 moves of one sphere, each update timed, none a
+   full build, and the moved frame within RMSE 2e-3 of a fresh tlas
+   build.
 
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON (its
-launches from phases 5, 6 and 9; ``ms`` one launch between two events,
+launches from phases 5, 6, 9 and 10, and split by phase in
+``launches_by_phase``; ``ms`` one launch between two events,
 ``device_ms`` the device time), the card's name and power limit, and
 the run's JSON result.
 
@@ -138,6 +156,7 @@ FLOP_PER_TEST = 39         # one Woop (ray, triangle) test
 FLOP_PER_SLAB = 28         # one (ray, cell) slab test
 FLOP_PER_BOX = 25          # one (ray, child box) test of the traversal
 FLOP_PER_MT = 53           # one Möller–Trumbore (ray, triangle) test
+TRAVERSE_THREADS = 128     # traverse_kernel.cu's block, kTraverseThreads
 
 
 def _check(cond: bool, what: str) -> None:
@@ -323,20 +342,10 @@ def build_slice_scene(rs, workdir: str, materials=None) -> int:
     from SEED. ``materials`` = (sphere material ids, room material id)
     gives sphere i material ``i % len(sphere ids)``, one PLY per sphere
     material; without it, one untextured material each."""
-    from rfw_tpu_torch.scene import Skybox
-    rng = np.random.default_rng(SEED)
     sv, sf = _icosphere(4)
-    spheres = []
-    for ix in range(10):
-        for iz in range(6):
-            r = rng.uniform(0.7, 1.1)
-            c = np.array([(ix - 4.5) * 2.5, r, (iz - 2.5) * 2.5])
-            c[[0, 2]] += rng.uniform(-0.3, 0.3, 2)
-            spheres.append(sv * r + c)
+    spheres = [sv * r + c for r, c in _sphere_placements()]
     if materials is None:
-        materials = ([rs.add_material([0.8, 0.75, 0.7], roughness=0.35,
-                                      metallic=0.2)],
-                     rs.add_material([0.6, 0.62, 0.65]))
+        materials = _slice_materials_plain(rs)
     sphere_m, room_m = materials
     for g, mat in enumerate(sphere_m):
         group = spheres[g::len(sphere_m)]
@@ -346,6 +355,33 @@ def build_slice_scene(rs, workdir: str, materials=None) -> int:
                                    for i in range(len(group))]),
                    np.tile(_sphere_uv(sv), (len(group), 1)))
         rs.add_instance(rs.add_object(path, material_override=mat))
+    return len(spheres) * len(sf) + _add_room(rs, workdir, room_m)
+
+
+def _sphere_placements():
+    """The slice's 60 spheres as (radius, centre), drawn from SEED."""
+    rng = np.random.default_rng(SEED)
+    out = []
+    for ix in range(10):
+        for iz in range(6):
+            r = rng.uniform(0.7, 1.1)
+            c = np.array([(ix - 4.5) * 2.5, r, (iz - 2.5) * 2.5])
+            c[[0, 2]] += rng.uniform(-0.3, 0.3, 2)
+            out.append((r, c))
+    return out
+
+
+def _slice_materials_plain(rs):
+    """The untextured slice's sphere and room materials."""
+    return ([rs.add_material([0.8, 0.75, 0.7], roughness=0.35,
+                             metallic=0.2)],
+            rs.add_material([0.6, 0.62, 0.65]))
+
+
+def _add_room(rs, workdir: str, room_m: int) -> int:
+    """The slice's floor and two walls (one PLY), the bench's lamp quad,
+    the test sky and the 1080p camera. Returns their triangle count."""
+    from rfw_tpu_torch.scene import Skybox
     room = [_grid([-20, 0, -20], np.float32([0, 0, 40]),
                   np.float32([40, 0, 0]), 40),                   # floor
             _grid([-20, 0, 15], np.float32([40, 0, 0]),
@@ -366,7 +402,24 @@ def build_slice_scene(rs, workdir: str, materials=None) -> int:
     rs.camera.resize(1920, 1080)
     rs.camera.fov = 60.0
     rs.camera.look_at([0.0, 12.0, -22.0], [0.0, 1.0, 2.0])
-    return len(spheres) * len(sf) + sum(len(f) for _, _, f in room) + 2
+    return sum(len(f) for _, _, f in room) + 2
+
+
+def build_instanced_scene(rs, workdir: str):
+    """Phase 10's scene: ``build_slice_scene``'s world geometry with the
+    spheres as 60 instances of one level-4 icosphere, written once as a
+    PLY and loaded with add_object, each placed by ``add_instance``
+    (scale r, translation c, as ``_sphere_placements`` draws them), so
+    the TLAS holds 3 BLASes (sphere, room, lamp) under 62 instances.
+    Returns (triangle count, the spheres' InstanceRefs)."""
+    sv, sf = _icosphere(4)
+    path = os.path.join(workdir, "sphere.ply")
+    _write_ply(path, sv, sv, sf, _sphere_uv(sv))
+    (sphere_m,), room_m = _slice_materials_plain(rs)
+    ref = rs.add_object(path, material_override=sphere_m)
+    spheres = [rs.add_instance(ref, scale=(r, r, r), translation=c)
+               for r, c in _sphere_placements()]
+    return len(spheres) * len(sf) + _add_room(rs, workdir, room_m), spheres
 
 
 def slice_materials(rs, size: int = 1024):
@@ -567,7 +620,7 @@ def _streams(rs):
 
     drv._intersector = isect._replace(occluded=occluded)
     try:
-        out, _, _ = drv._stage(eng._scene, view, st, 0, 0, 0)
+        out, _, _, _ = drv._stage(eng._scene, view, st, 0, 0, 0)
     finally:
         drv._intersector = isect
     _check(len(shadow) == 1, "depth 0 made no occlusion launch")
@@ -760,7 +813,8 @@ def _edge_batches(scene, primary, eps):
     """The traversal's edge cases, as (name, bvh, triangle table,
     origins, directions, t_max): the comb BVH, whose walks overflow the
     64-entry stack, and batches of the slice's primary rays of n = 0, 1,
-    33 and one above the kernel's resident grid, with axis-parallel
+    33, one above a block of the kernel (TRAVERSE_THREADS + 1) and one
+    above 512 blocks, with axis-parallel
     directions, zero (and minus zero) components, zero directions and
     NaN directions and origins, and t_max 1e30, 0, -1, eps, NaN and 2.5
     mixed in every warp."""
@@ -786,9 +840,10 @@ def _edge_batches(scene, primary, eps):
                         device=dev)
     t_pattern = torch.tensor([1e30, 0.0, 1e30, -1.0, eps, float("nan"),
                               2.5], device=dev)
-    lanes = traverse.resident_lanes(dev)
-    for n in (0, 1, 33, lanes + 1):
+    for n in (0, 1, 33, TRAVERSE_THREADS + 1, 512 * TRAVERSE_THREADS + 1):
         o, d = primary[0][:n].clone(), primary[1][:n].clone()
+        _check(o.shape[0] == n, f"edge batch of {n} rays from a chunk of "
+               f"{primary[0].shape[0]}")
         k = torch.arange(n, device=dev)
         m = k % 8 == 3
         d[m] = axes[(k[m] // 8) % 6]
@@ -819,7 +874,6 @@ def phase_traverse_kernel(rs, cfg, ptxas):
           f"{p.get('smem')} B shared memory, {p.get('stack')} B stack frame "
           f"(the 64-entry stack), {p.get('spill_stores')}/"
           f"{p.get('spill_loads')} B spill stores/loads; "
-          f"{traverse.resident_lanes(table.device)} resident lanes; "
           f"{bvh['nodes'].shape[0]} nodes of 128 B, {table.shape[0]} "
           f"triangles of 48 B")
     for name, b, tris, o, d, tm in _edge_batches(scene, streams["primary"],
@@ -1563,6 +1617,326 @@ def phase_megakernel(frame_visit, png, profile):
     return launches
 
 
+TLAS_MOVES = 8
+VISIT_LIST = ("enum", "visit", "expand", "tvisit")
+
+
+def _tlas_system(work, moves=0):
+    """Phase 10's system on ``build_instanced_scene``, with sphere 7
+    moved ``moves`` times by ``_tlas_move``; not yet synchronised."""
+    from rfw_tpu_torch.config import RenderConfig
+    from rfw_tpu_torch.system import RenderSystem
+    rs = RenderSystem("wavefront", RenderConfig(), device="cuda")
+    n_tris, spheres = build_instanced_scene(rs, work)
+    for i in range(moves):
+        _tlas_move(spheres, i)
+    return rs, n_tris, spheres
+
+
+def _tlas_move(spheres, i: int) -> None:
+    """The i-th move: sphere 7 lifted and pushed sideways."""
+    spheres[7].translate((0.15, 0.1 + 0.02 * i, -0.05))
+
+
+# the share of a stream's lanes on which the tlas and bvh intersectors
+# may part: both test the same triangles, tlas in object space, so they
+# part only where rounding decides a hit (a silhouette, a shared edge)
+TLAS_APART = 2e-5
+
+
+def _tlas_against_bvh(rs) -> float:
+    """The tlas intersector on the main path's chunk-0 streams (primary
+    and bounce closest hit, the depth-0 shadow launch any hit), with the
+    traversal kernel's launches caught: per stream and BLAS the launch
+    with the most live lanes among those that also have culled lanes
+    (``t_max`` 0; else the launch with the most live lanes) is held
+    against traverse_wide_ref on the same tensors, t, prim, u and v bit
+    for bit. Every BLAS must be held so in some stream, and the spheres'
+    BLAS (60 instances) with culled and live lanes in the bounce (closest
+    hit) and the shadow (any hit) stream; chunk 0's primary rays, the top
+    of the image, touch no sphere. Then the tlas
+    results against the bvh intersector's on the same rays: per stream
+    at most ``TLAS_APART`` of the lanes hit (or are occluded) in one
+    only or on another triangle, and where both hit one triangle their t
+    is apart by less than 1e-4 relative (tests/test_visit.py's bar).
+    Returns the largest kernel-plain difference of t."""
+    import torch
+    from rfw_tpu_torch.ops import traverse
+    from rfw_tpu_torch.render.intersectors import make_intersector
+    scene, streams, _ = _streams(rs)
+    cfg = rs.config
+    tlas, bvh = make_intersector("tlas", cfg), make_intersector("bvh", cfg)
+    blas = scene["tlas"]["blas"]
+    blas_ix = {id(bl): i for i, bl in enumerate(blas)}
+    spheres = max(range(len(blas)), key=lambda i: blas[i]["inst_base"]
+                  .shape[0])
+    launch, caught, current = traverse.traverse_wide, {}, [None]
+
+    def catching(o, d, b, tris, **kw):
+        out = launch(o, d, b, tris, **kw)
+        key = (current[0], blas_ix[id(b)])
+        live = int((kw["t_max"] > kw["t_epsilon"]).sum())
+        rank = (bool((kw["t_max"] == 0).any()) and live > 0, live)
+        if key not in caught or rank > caught[key][-1]:
+            caught[key] = (o, d, b, tris, kw, out, rank)
+        return out
+
+    results = {}
+    traverse.traverse_wide = catching
+    try:
+        for name, (o, d, tm) in streams.items():
+            current[0] = name
+            results[name] = (tlas.occluded(scene, o, d, tm)
+                             if name == "shadow"
+                             else tlas.closest(scene, o, d, tm))
+    finally:
+        traverse.traverse_wide = launch
+    err = 0.0
+    for (name, i), (o, d, b, tris, kw, out_k, _) in sorted(
+            caught.items()):
+        out_p = traverse.traverse_wide_ref(o, d, b, tris, **kw)
+        torch.cuda.synchronize()
+        _check(_bits_equal(out_k, out_p),
+               f"traverse kernel != plain on the tlas {name} launch of "
+               f"BLAS {i}")
+        err = max(err, float((out_k[0] - out_p[0]).abs().max()))
+        print(f"phase 10: traverse kernel vs traverse_wide_ref on a tlas "
+              f"{name} launch of BLAS {i} ({tris.shape[0]} triangles, "
+              f"{'any' if kw['any_hit'] else 'closest'} hit): "
+              f"{o.shape[0]} lanes, {int((kw['t_max'] == 0).sum())} "
+              f"culled, {int((out_k[1] >= 0).sum())} hits; equal bit for "
+              f"bit")
+    _check({i for _, i in caught} == set(range(len(blas))),
+           f"tlas launches held for BLASes {sorted(caught)} of "
+           f"{len(blas)}")
+    _check(all(caught.get((name, spheres), ((False, 0),))[-1][0]
+               for name in ("bounce", "shadow")),
+           "no tlas launch with culled and live lanes on the spheres' BLAS "
+           "in the bounce or the shadow stream")
+
+    for name, (o, d, tm) in streams.items():
+        bar = TLAS_APART * o.shape[0]
+        if name == "shadow":
+            occ = bvh.occluded(scene, o, d, tm)
+            apart = int((results[name] != occ).sum())
+            print(f"phase 10: tlas vs bvh on the {name} launch: {apart} of "
+                  f"{o.shape[0]} lanes occluded in one only (bar "
+                  f"{bar:.1f})")
+            _check(apart <= bar, f"tlas and bvh part on {apart} {name} "
+                   f"lanes")
+            continue
+        t_a, p_a, _, _ = results[name]
+        t_b, p_b, _, _ = bvh.closest(scene, o, d, tm)
+        both = (p_a >= 0) & (p_b >= 0)
+        one_only = int(((p_a >= 0) != (p_b >= 0)).sum())
+        other = int((p_a != p_b)[both].sum())
+        same = both & (p_a == p_b)
+        rel = ((t_a - t_b).abs() / t_b.abs().clamp(min=1e-6))[same]
+        rel_max = float(rel.max()) if rel.numel() else 0.0
+        print(f"phase 10: tlas vs bvh on the {name} chunk: {one_only} of "
+              f"{o.shape[0]} lanes hit in one only; of {int(both.sum())} "
+              f"hit in both, {other} on another triangle (bar {bar:.1f} "
+              f"each); on the same triangle relative t apart by at most "
+              f"{rel_max:.3g} (bar 1e-4)")
+        _check(one_only <= bar and other <= bar and rel_max < 1e-4,
+               f"tlas and bvh part on the {name} chunk: {one_only} lanes "
+               f"hit in one only, {other} on another triangle, relative t "
+               f"{rel_max}")
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_tlas(png, profile):
+    """Phase 10: the instanced slice on the tlas intersector at 1080p.
+    The same system renders 4 spp on bvh, then on tlas (a full build
+    with the BLASes), and the two frames must agree; then the tlas slice
+    is timed as phase 5 (no visit-list kernel may launch) with the
+    traverse launches per sample and the touched instances per
+    intersector call; then a 1-spp frame raw and denoised against the
+    slice's converged frame, and FXAA; then 8 moves of one sphere, which
+    must refresh the instance tables without a full build and render
+    like a fresh build. Returns the slice's launches and the largest
+    kernel-plain difference of t on its held traverse launches."""
+    import torch
+    import rfw_tpu_torch.render.engines as engines
+    import rfw_tpu_torch.render.scene_data as sd
+    from rfw_tpu_torch.ops import cuda_lib, tonemap
+    from rfw_tpu_torch.render import RenderStatus
+
+    builds, blas_s, moves_seen = [0], [], [0]
+    build, tables, retransform = (sd.build_device_scene,
+                                  sd._build_tlas_tables,
+                                  sd.retransform_instances)
+
+    def counted_build(*a, **kw):
+        builds[0] += 1
+        return build(*a, **kw)
+
+    def timed_tables(*a, **kw):
+        t0 = time.perf_counter()
+        out = tables(*a, **kw)
+        blas_s.append(time.perf_counter() - t0)
+        return out
+
+    def counted_retransform(*a, **kw):
+        moves_seen[0] += 1
+        return retransform(*a, **kw)
+
+    def frame(rs, spp):
+        return rs.render_frame(status=RenderStatus.RESET, samples=spp)
+
+    sd._build_tlas_tables = timed_tables
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            rs, n_tris, spheres = _tlas_system(work)
+            rs.set_setting("intersector", "bvh")
+            t0 = time.perf_counter()
+            rs.synchronize()
+            torch.cuda.synchronize()
+            flat_s = time.perf_counter() - t0
+            frame_bvh = frame(rs, 4)
+            rs.set_setting("intersector", "tlas")
+            t0 = time.perf_counter()
+            rs.context.update()          # the switch builds in full
+            torch.cuda.synchronize()
+            tlas_s = time.perf_counter() - t0
+            tl = rs.context._geo["tlas"]
+            n_inst = sum(b["inst_base"].shape[0] for b in tl["blas"])
+            print(f"phase 10: {n_tris} world triangles as {len(tl['blas'])} "
+                  f"BLASes under {n_inst} instances; build on bvh "
+                  f"{flat_s:.2f} s, on tlas {tlas_s:.2f} s (the flat tables "
+                  f"and the BLASes; BLASes and instance tables "
+                  f"{blas_s[-1]:.2f} s)")
+            _check(len(tl["blas"]) == 3 and n_inst == 62,
+                   "phase 10: the TLAS is not 3 BLASes under 62 instances")
+            frame_tlas = frame(rs, 4)
+            rmse = _rmse(frame_tlas, frame_bvh)
+            diff = np.abs(frame_tlas - frame_bvh).max(-1)
+            print(f"phase 10: tlas frame vs bvh frame, 4 spp: RMSE "
+                  f"{rmse:.6g} (bar 2e-3), max abs difference "
+                  f"{float(diff.max()):.6g}; pixels apart by more than "
+                  f"1e-2: {int((diff > 1e-2).sum())}, by more than 1e-5: "
+                  f"{int((diff > 1e-5).sum())} of {diff.size}")
+            _check(rmse < 2e-3, f"tlas frame RMSE {rmse} >= 2e-3")
+            err = _tlas_against_bvh(rs)
+
+            launches, converged = phase_slice(rs, n_tris, "phase 10", png,
+                                              profile, ("traverse",))
+            _check(all(launches[k] == 0 for k in VISIT_LIST),
+                   f"the tlas slice launched visit-list kernels: {launches}")
+            phase_depth_split(rs, "phase 10")
+            # the touched instances of each intersector call: the
+            # traverse launches it made, one a touched instance
+            drv = rs.context._driver
+            isect, per_call, all_occluded = drv._intersector, [], []
+
+            def counted(fn):
+                def run(*a, **kw):
+                    n0 = cuda_lib.launch_counts["traverse"]
+                    out = fn(*a, **kw)
+                    per_call.append(cuda_lib.launch_counts["traverse"] - n0)
+                    if fn is isect.occluded:
+                        # when rfw_tpu's any-hit loop could stop early
+                        all_occluded.append(bool(out.all()))
+                    return out
+                return run
+
+            drv._intersector = isect._replace(
+                closest=counted(isect.closest),
+                occluded=counted(isect.occluded))
+            try:
+                rs.render_frame(status=RenderStatus.CONVERGE, samples=1)
+            finally:
+                drv._intersector = isect
+            per = SLICE_WINDOWS * WINDOW_SAMPLES
+            print(f"phase 10: {launches['traverse'] / per:.2f} traverse "
+                  f"launches a sample; touched instances an intersector "
+                  f"call: mean {float(np.mean(per_call)):.2f}, max "
+                  f"{max(per_call)} over {len(per_call)} calls of one "
+                  f"sample; occlusion calls with every lane occluded "
+                  f"{sum(all_occluded)} of {len(all_occluded)}")
+
+            # denoise and FXAA on a 1-spp frame of the same view
+            raw = frame(rs, 1)
+            rs.set_setting("denoise", "1")
+            spans, denoise = [], engines.atrous_denoise
+
+            def timed_denoise(*a, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = denoise(*a, **kw)
+                ev[1].record()
+                spans.append(ev)
+                return out
+
+            engines.atrous_denoise = timed_denoise
+            try:
+                denoised = frame(rs, 1)
+            finally:
+                engines.atrous_denoise = denoise
+            rs.set_setting("denoise", "0")
+            dn_ms = spans[0][0].elapsed_time(spans[0][1])
+            r_raw, r_dn = _rmse(raw, converged), _rmse(denoised, converged)
+            print(f"phase 10: denoise {dn_ms:.2f} ms at 1920x1080 (CUDA "
+                  f"events); 1-spp frame vs the converged frame "
+                  f"({1 + per} samples): RMSE raw {r_raw:.6g}, denoised "
+                  f"{r_dn:.6g}")
+            _check(len(spans) == 1 and r_dn < r_raw,
+                   "the denoised frame is not closer to the converged one")
+            t0 = time.perf_counter()
+            ldr = rs.tonemap_frame(denoised, fxaa=True)
+            fx_wall = (time.perf_counter() - t0) * 1e3
+            ldr_t = tonemap.tonemap(torch.as_tensor(denoised,
+                                                    device=rs.device),
+                                    rs.camera.brightness, rs.camera.contrast)
+            fx_ms = _median_ms(lambda: tonemap.fxaa(ldr_t))
+            print(f"phase 10: tonemap_frame(fxaa=True) {fx_wall:.1f} ms "
+                  f"(host clock, with the copy to the host); fxaa "
+                  f"{fx_ms:.2f} ms at 1920x1080 (CUDA events, median of 5)")
+            _check(ldr.shape == (1080, 1920, 3)
+                   and bool(np.isfinite(ldr).all())
+                   and float(ldr.min()) >= 0.0 and float(ldr.max()) <= 1.0,
+                   "FXAA output not finite or outside [0, 1]")
+
+            # instance moves: the instance tables only, no full build
+            sd.build_device_scene = counted_build
+            sd.retransform_instances = counted_retransform
+            updates = []
+            for i in range(TLAS_MOVES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _tlas_move(spheres, i)
+                rs.synchronize()
+                torch.cuda.synchronize()
+                updates.append((time.perf_counter() - t0) * 1e3)
+            sd.build_device_scene = build
+            sd.retransform_instances = retransform
+            print(f"phase 10: {TLAS_MOVES} moves of one sphere: median "
+                  f"update {float(np.median(updates)):.1f} ms (host clock, "
+                  f"synced), updates {[round(u, 1) for u in updates]} ms; "
+                  f"{builds[0]} full builds, {moves_seen[0]} instance-table "
+                  f"refreshes")
+            _check(builds[0] == 0 and moves_seen[0] == TLAS_MOVES,
+                   f"tlas moves: {builds[0]} full builds, {moves_seen[0]} "
+                   f"refreshes in {TLAS_MOVES} moves")
+            moved = frame(rs, 2)
+            del rs
+            torch.cuda.empty_cache()
+            fresh, _, _ = _tlas_system(work, TLAS_MOVES)
+            fresh.set_setting("intersector", "tlas")
+            want = frame(fresh, 2)
+            del fresh
+            rmse = _rmse(moved, want)
+            print(f"phase 10: moved frame vs a fresh tlas build, 2 spp: RMSE "
+                  f"{rmse:.6g} (bar 2e-3), max abs difference "
+                  f"{float(np.abs(moved - want).max()):.6g}")
+            _check(rmse < 2e-3, f"moved tlas frame RMSE {rmse} >= 2e-3")
+    finally:
+        sd.build_device_scene, sd._build_tlas_tables = build, tables
+        sd.retransform_instances = retransform
+    return launches, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--png", help="write the tonemapped 1080p frame here")
@@ -1647,6 +2021,24 @@ def main() -> int:
     png9 = args.png and os.path.splitext(args.png)[0] + "_megakernel.png"
     launches.update(traverse=phase_megakernel(frame_visit, png9,
                                               args.profile)["traverse"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    png10 = args.png and os.path.splitext(args.png)[0] + "_tlas.png"
+    launches_10, err_10 = phase_tlas(png10, args.profile)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s; traverse launches "
+          f"in the timed windows of phases 9 and 10: {launches['traverse']}"
+          f", {launches_10['traverse']}")
+    # each kernel's launches in the timed windows of the phases whose
+    # path it is: enum and visit phase 5 (visit), expand and tvisit phase
+    # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas)
+    by_phase = {"enum": {"5": launches["enum"]},
+                "visit": {"5": launches["visit"]},
+                "expand": {"6": launches["expand"]},
+                "tvisit": {"6": launches["tvisit"]},
+                "traverse": {"9": launches["traverse"],
+                             "10": launches_10["traverse"]}}
+    launches["traverse"] += launches_10["traverse"]
+    report["traverse"]["err"] = max(report["traverse"]["err"], err_10)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print("phase 8: launches per deformation frame (1080p, 1 spp): "
           + json.dumps(launches_8))
@@ -1654,6 +2046,7 @@ def main() -> int:
     # no single PyTorch call computes any of the five functions
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
+                "launches_by_phase": by_phase[name],
                 "max_abs_err": report[name]["err"], "ms": report[name]["ms"],
                 "device_ms": report[name]["device_ms"],
                 "plain_ms": report[name]["plain_ms"],

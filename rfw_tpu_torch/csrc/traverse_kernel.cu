@@ -2,8 +2,7 @@
 //
 // Built by rfw_tpu_torch/ops/cuda_lib.py with the other kernels
 // (--fmad=false, IEEE division) and bound with ctypes. The entry point
-// launches on the given stream, allocates nothing (the wrapper passes the
-// ray counter, which the entry zeroes on the stream) and returns
+// launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
 //
 // Replaces rfw_tpu/ops/traverse.py::traverse_wide (:58), an XLA step (a
@@ -15,21 +14,15 @@
 // latency. A ray pops a few nodes, each a chain of dependent loads
 // (stack, node, triangles) and a few hundred instructions, and the rays
 // of a warp walk paths of very different length. The design:
-// - persistent warps (Aila and Laine, "Understanding the Efficiency of
-//   Ray Traversal on GPUs", HPG 2009): the grid is as many blocks as the
-//   card holds resident (the occupancy query). Each warp takes rays
-//   kTraverseBatch at a time, its first batch by its index and the later
-//   ones from a global counter, one atomicAdd of its first lane a batch.
-//   Whenever kTraverseRefill lanes are idle, the idle lanes take the
-//   batch's next rays (__ballot_sync and __popc), so a lane whose ray is
-//   done is refilled and the warp is not held by its longest ray. On the
-//   1080p streams this costs more than it saves: the plain grid
-//   (kTraversePersistent=0) is faster (PERF.md);
+// - one thread a ray over ceil(n / kTraverseThreads) blocks. Persistent
+//   warps that refill finished lanes from a global counter (Aila and
+//   Laine, HPG 2009) were measured slower on the 1080p streams (PERF.md)
+//   and cost a counter reset and an occupancy query a launch;
 // - an exact exit for dead lanes: a ray with !(t_max > eps) is written as
-//   (t_max, -1, 0, 0) when it is fetched and never walks, and its lane
-//   takes another ray in the same refill. A triangle is taken only for
-//   eps < t < best.t, and best.t starts at t_max, so nothing such a ray
-//   could walk changes its result;
+//   (t_max, -1, 0, 0) at thread start and never walks (the TLAS path
+//   launches one walk an instance with its culled rays dead). A triangle
+//   is taken only for eps < t < best.t, and best.t starts at t_max, so
+//   nothing such a ray could walk changes its result;
 // - triangles from the triangle-major table traverse.tri_table, rows
 //   (v0, .), (e1, .), (e2, .): three 16-byte loads a triangle, and a
 //   leaf's triangles are contiguous;
@@ -44,7 +37,7 @@
 // memory, the top of a breadth-first node table in shared memory, and L1
 // prefetches of the next node, of a node's leaf rows and of a batch's
 // rays; each was slower.
-// Each part's size is a constexpr below, which
+// The block size kTraverseThreads is a constexpr below, which
 // rfw_tpu_torch/tools/kernel_variant.py switches and times.
 //
 // Order, exactly as traverse_wide_ref (and rfw_tpu) takes it:
@@ -72,23 +65,8 @@ constexpr int kStack = 64;
 constexpr int kWidth = 4;
 constexpr int kMaxLeaf = 8;  // triangles a leaf slot: 8 bits of the mask
 constexpr int kTraverseThreads = 128;
-// 1: persistent blocks that take rays from the counter; 0: one thread a
-// ray over a grid of ceil(n / kTraverseThreads) blocks
-constexpr int kTraversePersistent = 1;
-// rays a warp takes at once: its first batch by its index, the later
-// ones from the counter (one atomicAdd a batch)
-constexpr int kTraverseBatch = 32;
-// idle lanes a warp gathers before it refills them (1-32; 1: a lane is
-// refilled as soon as its ray is done; 32: only when every lane is)
-constexpr int kTraverseRefill = 1;
-// 1: a dead ray (!(t_max > eps)) is written at fetch and never walks
-constexpr int kTraverseDeadExit = 1;
-
-constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kTraverseThreads % 32 == 0, "whole warps");
-static_assert(kTraverseRefill >= 1 && kTraverseRefill <= 32, "refill");
-static_assert(kTraverseBatch >= 1, "batch");
 
 // torch.minimum / torch.maximum: NaN in, NaN out, one instruction each
 // (sm_80+). The sign of a zero result may differ from torch's; no
@@ -144,70 +122,29 @@ traverse_kernel(const float* __restrict__ origins,
                 const float* __restrict__ t_max, int n,
                 const float4* __restrict__ nodes,
                 const float4* __restrict__ tris, int leaf_size, float eps,
-                int any_hit, int* __restrict__ counter,
-                float* __restrict__ t_out, int* __restrict__ prim_out,
-                float* __restrict__ u_out, float* __restrict__ v_out) {
-  const unsigned lane = threadIdx.x & 31;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  // the warp's rays [pool, pool + left) (warp-uniform): a persistent
-  // warp's first batch by the warp's index, the later ones, past all the
-  // first batches, from the counter
-  const int warp = (blockIdx.x * kTraverseThreads + threadIdx.x) >> 5;
-  const int first_round =
-      kTraverseBatch * (gridDim.x * kTraverseThreads / 32);
-  int pool = (kTraversePersistent ? kTraverseBatch : 32) * warp;
-  int left = kTraversePersistent ? kTraverseBatch : 32;
-  int r = -1;               // this lane's ray, -1 when idle
-  float3 o{}, d{}, inv{};
-  Hit best{};
+                int any_hit, float* __restrict__ t_out,
+                int* __restrict__ prim_out, float* __restrict__ u_out,
+                float* __restrict__ v_out) {
+  const int r = blockIdx.x * kTraverseThreads + threadIdx.x;
+  if (r >= n) return;
+  Hit best{t_max[r], 0.0f, 0.0f, -1};
+  if (!(best.t > eps)) {
+    t_out[r] = best.t;
+    prim_out[r] = -1;
+    u_out[r] = 0.0f;
+    v_out[r] = 0.0f;
+    return;
+  }
+  const float3 o = make_float3(origins[3 * r], origins[3 * r + 1],
+                               origins[3 * r + 2]);
+  const float3 d = make_float3(directions[3 * r], directions[3 * r + 1],
+                               directions[3 * r + 2]);
+  const float3 inv =
+      make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   int stack[kStack];
-  int ptr = 0;
-  for (;;) {
-    unsigned idle = __ballot_sync(kFull, r < 0);
-    // refill: idle lanes take the pool's next rays in lane order; a dead
-    // ray is written here and its lane takes another, so dead rays cost
-    // the warp no walk
-    while (pool < n &&
-           (idle == kFull || __popc(idle) >= kTraverseRefill)) {
-      const int take = min(__popc(idle), left);
-      const int rank = __popc(idle & lanes_below);
-      if (r < 0 && rank < take && pool + rank < n) {
-        const int mine = pool + rank;
-        const float tm = t_max[mine];
-        if (kTraverseDeadExit && !(tm > eps)) {
-          t_out[mine] = tm;
-          prim_out[mine] = -1;
-          u_out[mine] = 0.0f;
-          v_out[mine] = 0.0f;
-        } else {
-          r = mine;
-          o = make_float3(origins[3 * r], origins[3 * r + 1],
-                          origins[3 * r + 2]);
-          d = make_float3(directions[3 * r], directions[3 * r + 1],
-                          directions[3 * r + 2]);
-          inv = make_float3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-          best = Hit{tm, 0.0f, 0.0f, -1};
-          stack[0] = 0;
-          ptr = 1;
-        }
-      }
-      pool += take;
-      left -= take;
-      if (left == 0) {
-        if (kTraversePersistent) {
-          int next = 0;
-          if (lane == 0) next = atomicAdd(counter, kTraverseBatch);
-          pool = first_round + __shfl_sync(kFull, next, 0);
-          left = kTraverseBatch;
-        } else {
-          pool = n;           // a plain grid's warp has its 32 rays only
-        }
-      }
-      idle = __ballot_sync(kFull, r < 0);
-    }
-    if (idle == kFull) break;      // no rays left, and every ray written
-    if (r < 0) continue;
-
+  stack[0] = 0;
+  int ptr = 1;
+  do {
     // one pop
     const int node = stack[min(ptr - 1, kStack - 1)];
     ptr -= 1;
@@ -271,72 +208,28 @@ traverse_kernel(const float* __restrict__ origins,
       }
     }
     ptr += pushed;
-    if (ptr <= 0 || (any_hit && best.prim >= 0)) {
-      t_out[r] = best.t;
-      prim_out[r] = best.prim;
-      u_out[r] = best.u;
-      v_out[r] = best.v;
-      r = -1;
-    }
-  }
-}
-
-// Blocks the card holds resident at once (the occupancy query, once a
-// device).
-int resident_blocks(int* blocks) {
-  static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (cached[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, traverse_kernel, kTraverseThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
-    cached[dev] = per_sm * sms;
-  }
-  *blocks = cached[dev];
-  return 0;
+  } while (ptr > 0 && !(any_hit && best.prim >= 0));
+  t_out[r] = best.t;
+  prim_out[r] = best.prim;
+  u_out[r] = best.u;
+  v_out[r] = best.v;
 }
 
 }  // namespace
 
-// Threads of the persistent grid on the current device: a batch of more
-// rays refills lanes.
-extern "C" int rfw_traverse_resident_lanes(int* lanes) {
-  int blocks = 0;
-  const int err = resident_blocks(&blocks);
-  if (err) return err;
-  *lanes = blocks * kTraverseThreads;
-  return 0;
-}
-
 extern "C" int rfw_traverse(const float* origins, const float* directions,
                             const float* t_max, int n, const float* nodes,
                             const float* tris, int leaf_size, float eps,
-                            int any_hit, int* counter, float* t_out,
-                            int* prim_out, float* u_out, float* v_out,
+                            int any_hit, float* t_out, int* prim_out,
+                            float* u_out, float* v_out,
                             cudaStream_t stream) {
   if (leaf_size < 1 || leaf_size > kMaxLeaf)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  int blocks = 0;
-  int err = resident_blocks(&blocks);
-  if (err) return err;
-  const int need = (n + kTraverseThreads - 1) / kTraverseThreads;
-  const int grid = kTraversePersistent ? (need < blocks ? need : blocks)
-                                       : need;
-  if (kTraversePersistent) {
-    const cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int grid = (n + kTraverseThreads - 1) / kTraverseThreads;
   traverse_kernel<<<grid, kTraverseThreads, 0, stream>>>(
       origins, directions, t_max, n, reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const float4*>(tris), leaf_size, eps, any_hit,
-      counter, t_out, prim_out, u_out, v_out);
+      reinterpret_cast<const float4*>(tris), leaf_size, eps, any_hit, t_out,
+      prim_out, u_out, v_out);
   return (int)cudaGetLastError();
 }

@@ -170,10 +170,8 @@ def load() -> ctypes.CDLL:
     lib.rfw_expand.restype = i
     lib.rfw_tvisit.argtypes = [p, i, p, p, p, i, p, i, i, f, i, p, p, p, p]
     lib.rfw_tvisit.restype = i
-    lib.rfw_traverse.argtypes = [p, p, p, i, p, p, i, f, i, p, p, p, p, p, p]
+    lib.rfw_traverse.argtypes = [p, p, p, i, p, p, i, f, i, p, p, p, p, p]
     lib.rfw_traverse.restype = i
-    lib.rfw_traverse_resident_lanes.argtypes = [p]
-    lib.rfw_traverse_resident_lanes.restype = i
     lib.rfw_error_string.argtypes = [i]
     lib.rfw_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -3,11 +3,11 @@
 
 ``traverse_wide`` walks the 4-wide BVH of the scene build for a batch of
 rays, closest hit or any hit: a hand-written CUDA kernel on CUDA tensors
-(``csrc/traverse_kernel.cu``, persistent warps that refill finished
-lanes), and on CPU tensors its plain PyTorch version
-``traverse_wide_ref``, which steps every live ray through the same
-fixed-stack loop in lock step. Both follow the reference's per-ray order
-exactly, so the kernel equals the plain version bit for bit:
+(``csrc/traverse_kernel.cu``, one thread a ray), and on CPU tensors its
+plain PyTorch version ``traverse_wide_ref``, which steps every live ray
+through the same fixed-stack loop in lock step. Both follow the
+reference's per-ray order exactly, so the kernel equals the plain
+version bit for bit:
 
 * a node's 4 child boxes are slab-tested against the best t at node
   entry: ``tfar >= max(tnear, 0) & tnear < t_best & child >= 0``, with
@@ -35,8 +35,6 @@ worker).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -198,16 +196,6 @@ def traverse_wide_ref(origins, directions, bvh, tris,
     return t_best, prim, ub, vb
 
 
-def resident_lanes(device) -> int:
-    """Threads of the kernel's persistent grid on the CUDA ``device``: a
-    launch of more rays refills lanes."""
-    lanes = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        cuda_lib.check(cuda_lib.load().rfw_traverse_resident_lanes(
-            ctypes.byref(lanes)), "traverse occupancy query")
-    return lanes.value
-
-
 def traverse_wide(origins, directions, bvh, tris, leaf_size: int = LEAF_SIZE,
                   t_max=None, t_epsilon: float = 1e-4,
                   any_hit: bool = False):
@@ -251,12 +239,11 @@ def traverse_wide(origins, directions, bvh, tris, leaf_size: int = LEAF_SIZE,
     v = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return t, prim, u, v
-    counter = torch.empty(1, dtype=torch.int32, device=dev)
     lib = cuda_lib.load()
     err = lib.rfw_traverse(ptr(origins), ptr(directions), ptr(tm), n,
                            ptr(nodes), ptr(table),
                            int(leaf_size), float(t_epsilon), int(any_hit),
-                           ptr(counter), ptr(t), ptr(prim), ptr(u), ptr(v),
+                           ptr(t), ptr(prim), ptr(u), ptr(v),
                            stream(dev))
     cuda_lib.check(err, "traverse kernel")
     launch_counts["traverse"] += 1

@@ -15,8 +15,15 @@
 
 Kernels run on a CUDA device and their plain PyTorch versions on the
 CPU. Same-topology updates take the device refit when
-``config.device_refit`` is set and the intersector is not ``bvh`` (the
-device refit leaves the wide BVH as it was), else the host refit.
+``config.device_refit`` is set and the intersector is neither ``bvh``
+(the device refit leaves the wide BVH as it was) nor ``tlas``, else the
+host refit; under ``tlas`` an instance move refreshes only the world
+planes and the instance tables (``scene_data.retransform_instances``),
+and a deformation builds in full (its BLASes change).
+
+The ``denoise`` setting runs the à-trous filter (``ops/denoise.py``) over
+each finished frame, guided by the last sample's primary-hit normal and
+depth planes, which the integrator builds only while the setting is on.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..ops.denoise import atrous_denoise
 from ..ops.rng import blue_noise_stack
 from ..ops.tonemap import resolve_accumulator
 from ..scene.lights import pack_lights
@@ -50,6 +58,21 @@ _TEX_SLOTS = {"diffuse": ("tex0_id",), "normal": ("tex1_id",),
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _check_wide(bvh: dict, n_tri: int, what: str) -> None:
+    """A wide BVH's leaf ranges inside ``n_tri`` triangles and its child
+    indices inside its nodes, else ValueError."""
+    child = bvh["child"].cpu().numpy()
+    count = bvh["count"].cpu().numpy()
+    leaf = count > 0
+    if leaf.any():
+        firsts = child[leaf]
+        if firsts.min() < 0 or (firsts + count[leaf]).max() > n_tri:
+            raise ValueError(f"{what} leaf range out of bounds")
+    internal = (count < 0) & (child >= 0)
+    if internal.any() and child[internal].max() >= child.shape[0]:
+        raise ValueError(f"{what} child index out of bounds")
 
 
 class PathTracerEngine(EngineContext):
@@ -95,6 +118,7 @@ class PathTracerEngine(EngineContext):
         self._driver: WavefrontDriver | None = None
         self._pending = None
         self._intersector_name = self.default_intersector
+        self._denoise = False
 
     # -- uploads -------------------------------------------------------------
 
@@ -192,17 +216,38 @@ class PathTracerEngine(EngineContext):
         _sync(self.device)
 
     def _uses_device_refit(self) -> bool:
-        """The device refit leaves the wide BVH as it was: the ``bvh``
-        intersector takes the host refit."""
-        return self.config.device_refit and self._intersector_name != "bvh"
+        """The device refit leaves the wide BVH and the TLAS tables as
+        they were: the ``bvh`` and ``tlas`` intersectors, and any scene
+        with TLAS tables, take the host paths."""
+        return (self.config.device_refit
+                and self._intersector_name not in ("bvh", "tlas")
+                and not (self._geo is not None and "tlas" in self._geo))
 
-    def _refit(self, instances, anim_key):
+    def _move_instances(self, instances) -> dict:
+        """Under ``tlas``, new transforms of the same structure: the world
+        planes, the pack and the instance tables made again, on the
+        build's triangle order; the BLASes stay. Not a refit: it does
+        not count towards ``max_refits``."""
+        out = scene_data.retransform_instances(
+            self._geo, instances, self._perm_host, pack_host=self._pack_host)
+        self._pack_host = out.pop("_pack_host", self._pack_host)
+        new = {k: v for k, v in out.items()
+               if k == "tlas" or isinstance(v, np.ndarray)}
+        return {**self._geo, **scene_data.scene_to_torch(new, self.device)}
+
+    def _refit(self, instances, anim_key, structure_key):
         """The same-topology update of the geometry, or None when the
         update needs a full build (another structure, no build yet,
         ``max_refits`` refits since the last build, or no native BVH
         refit). Device refits with fresh Morton cells do not count
         towards ``max_refits``: their cells never drift from the
-        geometry."""
+        geometry. Under ``tlas`` an update of the transforms alone takes
+        ``_move_instances``."""
+        if (self._intersector_name == "tlas" and self._geo is not None
+                and "tlas" in self._geo and self._perm_host is not None
+                and self._geo_key is not None
+                and self._geo_key[0] == structure_key):
+            return self._move_instances(instances)
         if (self._anim_key != anim_key or self._geo is None
                 or self._perm_host is None
                 or self._refits >= self.config.max_refits):
@@ -274,7 +319,7 @@ class PathTracerEngine(EngineContext):
                     tuple(im.triangles.vertices.shape[0] for im in instances))
         if geo_key != self._geo_key:
             timer = Timer()
-            geo = self._refit(instances, anim_key)
+            geo = self._refit(instances, anim_key, structure_key)
             what = "refit"
             if geo is None:
                 what = "build"
@@ -359,21 +404,25 @@ class PathTracerEngine(EngineContext):
                                            tex_flags, n_local, self.device)
             step = self._driver.step
         else:
-            def step(scene, accumulator, view, sample_index, probe_index):
-                probe, stats = None, {}
+            def step(scene, accumulator, view, sample_index, probe_index,
+                     with_aux=True):
+                probe, stats, aux = None, {}, []
                 for c in range(n_chunks):
                     off = c * n_local
                     rel = min(max(probe_index - off, 0), n_local - 1)
-                    radiance, probe_c, st = trace_sample(
+                    radiance, probe_c, st, aux_c = trace_sample(
                         scene, view, width, height, sample_index, rel, cfg,
                         intersector, pixel_offset=off, n_pixels=n_local,
-                        tex_flags=tex_flags)
+                        tex_flags=tex_flags, with_aux=with_aux)
                     accumulator[off:off + n_local] += radiance
                     if probe is None or off <= probe_index < off + n_local:
                         probe = probe_c
                     for k, v in st.items():
                         stats[k] = stats[k] + v if k in stats else v
-                return accumulator, probe, stats
+                    aux.append(aux_c)
+                return accumulator, probe, stats, ({
+                    k: torch.cat([a[k] for a in aux]) for k in aux[0]}
+                    if with_aux else None)
         self._step, self._step_key = step, key
         return step
 
@@ -408,31 +457,36 @@ class PathTracerEngine(EngineContext):
         if profiled:
             # the last sample runs with a sync per depth, which fills the
             # per-stage times of RenderStats; the frame is the same
-            acc, probe, stats = drv.step_multi(
+            acc, _, _, _ = drv.step_multi(
                 self._scene, self._accumulator, view_t, self._sample_count,
-                probe_index, samples - 1)
-            acc, probe, stats = drv.step_profiled(
+                probe_index, samples - 1, with_aux=False)
+            acc, probe, stats, aux = drv.step_profiled(
                 self._scene, acc, view_t, self._sample_count + samples - 1,
-                probe_index)
+                probe_index, with_aux=self._denoise)
         elif drv is not None:
-            acc, probe, stats = drv.step_multi(
+            acc, probe, stats, aux = drv.step_multi(
                 self._scene, self._accumulator, view_t, self._sample_count,
-                probe_index, samples)
+                probe_index, samples, with_aux=self._denoise)
         else:
+            # the denoiser's guide planes: the last sample's, and only
+            # when it runs
             acc = self._accumulator
             for s in range(samples):
-                acc, probe, stats = step(self._scene, acc, view_t,
-                                         self._sample_count + s, probe_index)
+                acc, probe, stats, aux = step(
+                    self._scene, acc, view_t, self._sample_count + s,
+                    probe_index,
+                    with_aux=self._denoise and s == samples - 1)
         self._accumulator = acc
         self._sample_count += samples
-        self._pending = (probe, stats, timer, profiled)
+        self._pending = (probe, stats, aux, timer, profiled)
 
     def finish_frame(self) -> np.ndarray:
         """Wait for the dispatched frame, fill stats, return resolved HDR
-        (H, W, 3) as numpy."""
+        (H, W, 3) as numpy, denoised under the ``denoise`` setting (the
+        last sample's primary-hit normal and depth planes guide it)."""
         if self._pending is None:
             raise RuntimeError("finish_frame without a frame in flight")
-        probe, stats, timer, profiled = self._pending
+        probe, stats, aux, timer, profiled = self._pending
         self._pending = None
         _sync(self.device)
         elapsed = timer.elapsed()
@@ -462,7 +516,33 @@ class PathTracerEngine(EngineContext):
         self._probe_result = (int(p[0]), int(p[1]), float(p[2]))
         width, height = self._size
         frame = resolve_accumulator(self._accumulator, self._sample_count)
-        return frame.reshape(height, width, 3).cpu().numpy()
+        frame = frame.reshape(height, width, 3)
+        if self._denoise and aux is not None:
+            if self._driver is not None:
+                # the compacted driver keeps aux in its lanes' order
+                aux = self._driver.aux_inverse(aux)
+            frame = atrous_denoise(
+                frame, aux["normal"].reshape(height, width, 3),
+                aux["depth"].reshape(height, width))
+        return frame.cpu().numpy()
+
+    def get_render_state(self):
+        """(accumulator (N, 3) float32 numpy, sample count), or None
+        before the first frame."""
+        if self._accumulator is None:
+            return None
+        return self._accumulator.cpu().numpy(), int(self._sample_count)
+
+    def set_render_state(self, accumulator, sample_count: int) -> None:
+        """Resume from ``get_render_state``'s pair at the current size;
+        the next CONVERGE frame adds to it."""
+        acc = np.asarray(accumulator, np.float32)
+        w, h = self._size
+        if acc.shape != (w * h, 3):
+            raise ValueError(f"accumulator {acc.shape} does not match "
+                             f"{w}x{h}")
+        self._accumulator = torch.from_numpy(acc.copy()).to(self.device)
+        self._sample_count = int(sample_count)
 
     def resize(self, width: int, height: int) -> None:
         if (width, height) != self._size:
@@ -475,7 +555,9 @@ class PathTracerEngine(EngineContext):
 
     def validate(self) -> None:
         """Scene invariants: finite geometry, material ids in range, the
-        wide BVH's leaf ranges and child indices in bounds."""
+        wide BVH's leaf ranges and child indices in bounds, and those of
+        every BLAS of the TLAS tables, with their instances' triangles
+        inside the flattened planes."""
         self.update()
         s = self._scene
         verts = s["tri_vertices"].cpu().numpy()
@@ -487,23 +569,23 @@ class PathTracerEngine(EngineContext):
             raise ValueError(
                 f"material id out of range: [{mats.min()}, {mats.max()}] "
                 f"vs {n_mat} materials")
-        child = s["bvh"]["child"].cpu().numpy()
-        count = s["bvh"]["count"].cpu().numpy()
-        n_tri = verts.shape[0]
-        leaf = count > 0
-        if leaf.any():
-            firsts = child[leaf]
-            if firsts.min() < 0 or (firsts + count[leaf]).max() > n_tri:
-                raise ValueError("BVH leaf range out of bounds")
-        internal = (count < 0) & (child >= 0)
-        if internal.any() and child[internal].max() >= child.shape[0]:
-            raise ValueError("BVH child index out of bounds")
+        _check_wide(s["bvh"], verts.shape[0], "BVH")
+        if "tlas" in s:
+            n_flat = s["tlas"]["orig_to_perm"].shape[0]
+            for i, b in enumerate(s["tlas"]["blas"]):
+                n_tri = b["prim_order"].shape[0]
+                _check_wide(b, n_tri, f"BLAS {i}")
+                if int(b["inst_base"].max()) + n_tri > n_flat:
+                    raise ValueError(f"BLAS {i}: instance triangles past "
+                                     f"the {n_flat} flattened triangles")
 
     # -- settings ------------------------------------------------------------
 
     def get_available_settings(self):
         return [RenderSetting("intersector", self._intersector_name,
-                              sorted(FACTORIES))]
+                              sorted(FACTORIES)),
+                RenderSetting("denoise", "1" if self._denoise else "0",
+                              ["0", "1"])]
 
     def set_setting(self, name: str, value: str) -> None:
         super().set_setting(name, value)
@@ -514,17 +596,21 @@ class PathTracerEngine(EngineContext):
                 # updates the geometry, not only the small tables
                 self._geo_key = None
                 self._dirty = True
-            if value == "tvisit" and not self.config.subcell_tables:
-                # the child-cell tables are opt-in; selecting tvisit
-                # implies them (the config is frozen, as in the
-                # reference). Adding tables takes a full build: a refit
-                # of the scene without them would keep it without them
-                object.__setattr__(self.config, "subcell_tables", True)
+            # the child-cell tables of tvisit and the two-level tables of
+            # tlas are opt-in; selecting the intersector implies them
+            # (the config is frozen, as in the reference). Adding tables
+            # takes a full build: a refit of the scene without them would
+            # keep it without them
+            flag = {"tvisit": "subcell_tables", "tlas": "use_tlas"}.get(value)
+            if flag is not None and not getattr(self.config, flag):
+                object.__setattr__(self.config, flag, True)
                 self._geo_key = None
                 self._anim_key = None
                 self._dirty = True
             self._intersector_name = value
             self._step = None
+        elif name == "denoise":
+            self._denoise = value in ("1", "true", "True")
 
 
 @register_engine("bruteforce")

@@ -143,15 +143,19 @@ def make_path_state(scene, view, width: int, height: int, sample_index: int,
 def depth_stage(scene, view, state: PathState, width: int, depth: int,
                 sample_index: int, probe_lane: int, config: RenderConfig,
                 intersector: Intersector, tex_flags=None,
-                sort_rays: bool | None = None, height: int | None = None):
+                sort_rays: bool | None = None, height: int | None = None,
+                with_aux: bool = True):
     """One depth of the wavefront loop: closest hit → shade (sky /
     emissive) → NEE + occlusion → extension BSDF sample.
 
     ``probe_lane`` is the lane to probe (depth 0 only). ``sort_rays``
     overrides the closest-hit coherence sort (None: sort iff depth > 0;
     the compacted driver passes False for its pre-sorted streams).
-    Returns (state, stats, probe): stats {"ray_count", "shadow_count"}
-    for this depth as device scalars, probe (3,) at depth 0 else None.
+    Returns (state, stats, probe, aux): stats {"ray_count",
+    "shadow_count"} for this depth as device scalars; at depth 0 probe
+    (3,) and the denoiser's guide planes aux {"normal" (N, 3), "depth"
+    (N,)} (the shading normal and the hit distance, 0 on a miss; None
+    unless ``with_aux``), else None and None.
     """
     n = state.pid.shape[0]
     bsdf = get_bsdf(config.bsdf)
@@ -163,7 +167,7 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
      last_n, alive, pid) = state
     pid_l = pid.long()
     px, py = pid_l % width, pid_l // width
-    probe = None
+    probe = aux = None
     stats = {}
 
     ray_tmax = torch.where(alive, 1e30, 0.0)
@@ -210,6 +214,9 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
     alpha_cut = alpha_cut & alive
 
     if depth == 0:
+        if with_aux:
+            aux = {"normal": torch.where(miss[..., None], 0.0, i_n),
+                   "depth": torch.where(miss, 0.0, t)}
         probe_prim = prim_safe[probe_lane]
         probe = torch.stack([
             scene["tri_instance"][probe_prim].to(torch.float32),
@@ -358,7 +365,7 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
         # final depth: no extension rays
         state = PathState(origin, direction, throughput, radiance, last_pdf,
                           spec_bounce, last_n, torch.zeros_like(alive), pid)
-        return state, stats, probe
+        return state, stats, probe, aux
 
     # extension: sample the BSDF
     seed, (r3, r4) = rng.random_floats(seed, 2)
@@ -385,16 +392,19 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
     direction = torch.where(ac, direction, wi)
     state = PathState(origin, direction, throughput, radiance, last_pdf,
                       spec_bounce, last_n, alive, pid)
-    return state, stats, probe
+    return state, stats, probe, aux
 
 
 def trace_sample(scene, view, width: int, height: int, sample_index: int,
                  probe_index: int, config: RenderConfig,
                  intersector: Intersector, pixel_offset: int = 0,
-                 n_pixels: int | None = None, tex_flags=None):
+                 n_pixels: int | None = None, tex_flags=None,
+                 with_aux: bool = True):
     """One sample for every pixel of a contiguous range, all depths on
-    fixed lanes (the fused path). Returns (radiance (N, 3) in pixel
-    order, probe (3,), stats {"ray_count_d", "shadow_count_d"})."""
+    fixed lanes (the fused path). Returns (radiance (N, 3), probe (3,),
+    stats {"ray_count_d", "shadow_count_d"}, aux {"normal" (N, 3),
+    "depth" (N,)}, None unless ``with_aux``), radiance and aux in pixel
+    order."""
     n = n_pixels if n_pixels is not None else width * height
     dev = scene["tri_pack"].device
     tp = _tile_permutation(width, n)
@@ -409,17 +419,21 @@ def trace_sample(scene, view, width: int, height: int, sample_index: int,
     state = make_path_state(scene, view, width, height, sample_index,
                             config, pid)
     stats = {}
-    probe = None
+    probe = aux = None
     for depth in range(config.max_path_length + 1):
-        state, st, probe_d = depth_stage(
+        state, st, probe_d, aux_d = depth_stage(
             scene, view, state, width, depth, sample_index,
             probe_lane if depth == 0 else 0, config, intersector,
-            tex_flags=tex_flags, sort_rays=depth > 0, height=height)
+            tex_flags=tex_flags, sort_rays=depth > 0, height=height,
+            with_aux=with_aux)
         if depth == 0:
-            probe = probe_d
+            probe, aux = probe_d, aux_d
         for k, val in st.items():
             stats[f"{k}_{depth}"] = val
     radiance = state.radiance
     if tp is not None:
-        radiance = radiance[torch.from_numpy(inv).to(dev).long()]
-    return radiance, probe, stats
+        inv_t = torch.from_numpy(inv).to(dev).long()
+        radiance = radiance[inv_t]
+        if aux is not None:
+            aux = {k: v[inv_t] for k, v in aux.items()}
+    return radiance, probe, stats, aux

@@ -1,5 +1,5 @@
 """Intersectors pluggable into the integrator (port of
-``rfw_tpu.render.intersectors``; all but ``tlas``).
+``rfw_tpu.render.intersectors``).
 
 * ``bvh`` — per-ray stack traversal of the 4-wide BVH (ops/traverse.py),
   a hand-written CUDA kernel; the default of every engine but
@@ -12,12 +12,16 @@
 * ``brute`` — O(R·T) dense and exact; the oracle for tiny scenes.
 * ``dense`` — every ray against every cell slot's Woop matrix, plain
   torch; an oracle for tiny scenes.
+* ``tlas`` — the two-level path (``bvh.tlas.walk``): per instance a
+  world-box cull, the rays into object space, and the traversal kernel
+  over the instance's shared BLAS. Needs ``config.use_tlas``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..bvh import tlas
 from ..config import RenderConfig
 from ..ops import traverse, tvisit_intersect, visit_intersect
 from ..ops.intersect import BIG_T, closest_hit_woop, intersect_woop
@@ -126,23 +130,50 @@ def make_tvisit_intersector(config: RenderConfig) -> Intersector:
     return Intersector(closest, occluded)
 
 
+# rays a slab pass of the premask takes at once: bounds its (rays x
+# instances) transient; tests shrink it to run the multi-chunk path
+_TLAS_RAY_CHUNK = 65536
+
+
+def make_tlas_intersector(config: RenderConfig) -> Intersector:
+    """The two-level TLAS/BLAS walk over ``scene["tlas"]``
+    (``bvh.tlas.walk``, ``_TLAS_RAY_CHUNK`` rays a premask pass); a hit
+    maps through ``orig_to_perm`` from the flattened input order into the
+    build's order of the shading planes, so shading is that of the flat
+    intersectors."""
+    eps = config.t_epsilon
+
+    def _loop(scene, o, d, t_max, any_hit: bool):
+        tl = scene["tlas"]
+        t, orig, u, v = tlas.walk(tl, o, d, t_max, eps, any_hit=any_hit,
+                                  ray_chunk=_TLAS_RAY_CHUNK)
+        flat = torch.where(orig >= 0, tl["orig_to_perm"][
+            torch.clamp(orig, min=0).long()], -1)
+        return t, flat, u, v
+
+    def closest(scene, o, d, t_max=None, sort=True, coherent=False):
+        t, prim, u, v = _loop(scene, o, d, BIG_T if t_max is None else t_max,
+                              any_hit=False)
+        return torch.where(prim >= 0, t, BIG_T), prim, u, v
+
+    def occluded(scene, o, d, dist, sort=True, coherent=False):
+        _, prim, _, _ = _loop(scene, o, d, dist, any_hit=True)
+        return prim >= 0
+
+    return Intersector(closest, occluded)
+
+
 FACTORIES = {
     "brute": make_brute_intersector,
     "bvh": make_bvh_intersector,
     "dense": make_dense_intersector,
     "visit": make_visit_intersector,
     "tvisit": make_tvisit_intersector,
+    "tlas": make_tlas_intersector,
 }
-
-# the reference's other intersectors, ported by later PRs (ROADMAP.md)
-NOT_PORTED = ("tlas",)
 
 
 def make_intersector(name: str, config: RenderConfig) -> Intersector:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"intersector {name!r} is not ported to rfw_tpu_torch yet "
-            "(ROADMAP.md, Queue 1)")
     if name not in FACTORIES:
         raise ValueError(f"unknown intersector {name!r}; available: "
                          f"{sorted(FACTORIES)}")

@@ -22,9 +22,14 @@ by one of two refits:
   rebuilds the ``tvisit`` child tables, which rfw_tpu's refit leaves
   stale.
 
-Left out: the TLAS tables, and tables that no ported consumer reads (the
-per-triangle and per-slot Woop matrices, whose rows ``wplanes`` carries,
-and ``cbounds``).
+With ``config.use_tlas`` the build also makes the two-level tables of
+the ``tlas`` intersector (``_build_tlas_tables``): one object-space BLAS
+per mesh slot and its instances' inverses and world boxes, which an
+instance move refreshes alone (``retransform_instances``).
+
+Left out: tables that no ported consumer reads (the per-triangle and
+per-slot Woop matrices, whose rows ``wplanes`` carries, and
+``cbounds``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import numpy as np
 import torch
 
 from ..bvh.builder import BVH, build_bvh, triangle_bounds
+from ..bvh.tlas import (box_world_aabb, build_blas, group_instances,
+                        walk_tables)
 from ..bvh.wide import (SUPER_G, collapse_wide, extract_treelets,
                         spatial_treelets, subdivide_cells)
 from ..config import RenderConfig
@@ -140,6 +147,49 @@ def _pad_wide(wide, min_cap: int = 0):
     return wide
 
 
+def _instance_tables(instances: list[InstancedMesh], roots) -> list[dict]:
+    """The TLAS's instance tables, one dict a BLAS
+    (``tlas.group_instances``): the instances grouped under their mesh
+    slot's BLAS (slots in the order first seen; ``roots`` the BLASes'
+    object-space root boxes (lo, hi) in that order), each with its
+    inverse matrix (inverted in float64, as rfw_tpu's scene tables), world
+    box and the offset ``inst_base`` of its triangles in the flattened
+    input order."""
+    slot_blas: dict[int, int] = {}
+    blas_of, inv, lo, hi, base = [], [], [], [], [0]
+    for im in instances:
+        bi = slot_blas.setdefault(im.mesh_slot, len(slot_blas))
+        box = box_world_aabb(*roots[bi], im.transform)
+        blas_of.append(bi)
+        inv.append(np.linalg.inv(im.transform.astype(np.float64))
+                   .astype(np.float32))
+        lo.append(box[0])
+        hi.append(box[1])
+        base.append(base[-1] + im.triangles.vertices.shape[0])
+    return group_instances(len(roots), blas_of, np.stack(inv), np.stack(lo),
+                           np.stack(hi), base[:-1])
+
+
+def _build_tlas_tables(instances: list[InstancedMesh],
+                       inv_perm: np.ndarray) -> dict:
+    """The ``tlas`` intersector's tables: one object-space BLAS per mesh
+    slot (``BLAS.arrays``), in the order the slots are first seen, with
+    its instances' tables (``_instance_tables``), and ``orig_to_perm``,
+    which maps the flattened input order into the build's triangle order
+    of the shading planes."""
+    blas_list: list[dict] = []
+    seen: set[int] = set()
+    for im in instances:
+        if im.mesh_slot not in seen:
+            seen.add(im.mesh_slot)
+            blas_list.append(build_blas(im.triangles.vertices).arrays())
+    roots = [(bl["root_lo"], bl["root_hi"]) for bl in blas_list]
+    for bl, t in zip(blas_list, _instance_tables(instances, roots)):
+        bl.update(t)
+    return {"blas": tuple(blas_list),
+            "orig_to_perm": inv_perm.astype(np.int32)}
+
+
 def build_tri_pack(scene: dict):
     """The per-triangle shading attributes in ONE (T, 32) float32 plane:
     0-8 normals, 9-14 uv, 15-17 gnormal, 18-20 tangent, 21-23 bitangent,
@@ -179,10 +229,6 @@ def build_device_scene(
     keeps padded sizes from shrinking between rebuilds."""
     if not instances:
         raise ValueError("cannot build an empty scene")
-    if config.use_tlas:
-        raise NotImplementedError(
-            "TLAS tables are not ported to rfw_tpu_torch yet "
-            "(ROADMAP.md, Queue 1)")
     shape_caps = shape_caps if shape_caps is not None else {}
     cat = _transform_triangles_all(instances)
     counts = cat.pop("counts")
@@ -304,6 +350,8 @@ def build_device_scene(
         wp32[:, :, :k4] = _woop_planes(pad_woop, k4, bmin32, bmax32)
         scene["treelets"].update(
             {"bmin32": bmin32, "bmax32": bmax32, "wplanes32": wp32})
+    if config.use_tlas:
+        scene["tlas"] = _build_tlas_tables(instances, inv_perm)
     if skybox is not None:
         scene["skybox"] = skybox
     if atlas is not None:
@@ -340,7 +388,7 @@ _SCENE_ATTACH_KEYS = ("materials", "lights", "skybox", "atlas",
 # the port's sources that decide what the build makes (this module, the
 # BVH and cell builders, the native builder and the Woop matrices)
 _SCENE_BUILD_SOURCES = ("render/scene_data.py", "bvh/__init__.py",
-                        "bvh/builder.py", "bvh/wide.py",
+                        "bvh/builder.py", "bvh/wide.py", "bvh/tlas.py",
                         "native/__init__.py", "native/bvh_builder.cpp",
                         "ops/intersect.py")
 
@@ -397,7 +445,8 @@ def _scene_cache_key(instances, config, area_light_overrides,
 
 def _scene_tree_split(obj, arrays: list):
     """Numpy leaves → index markers (the arrays appended to ``arrays``);
-    a BVH becomes a tagged dict of its fields."""
+    a BVH becomes a tagged dict of its fields, a tuple or list (the TLAS's
+    BLASes) a tagged list."""
     if isinstance(obj, np.ndarray):
         arrays.append(np.ascontiguousarray(obj))
         return {"__npy__": len(arrays) - 1}
@@ -407,6 +456,9 @@ def _scene_tree_split(obj, arrays: list):
                             for f in dataclasses.fields(BVH)}}
     if isinstance(obj, dict):
         return {k: _scene_tree_split(v, arrays) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return {"__seq__": [_scene_tree_split(v, arrays) for v in obj],
+                "__tuple__": isinstance(obj, tuple)}
     return obj
 
 
@@ -419,6 +471,9 @@ def _scene_tree_join(obj, fetch):
             # writable, never memory-mapped
             return BVH(**{k: np.array(_scene_tree_join(v, fetch))
                           for k, v in obj["__bvh__"].items()})
+        if "__seq__" in obj:
+            seq = [_scene_tree_join(v, fetch) for v in obj["__seq__"]]
+            return tuple(seq) if obj["__tuple__"] else seq
         return {k: _scene_tree_join(v, fetch) for k, v in obj.items()}
     return obj
 
@@ -746,10 +801,13 @@ def retransform_instances(scene: dict, instances: list[InstancedMesh],
                           pack_host: np.ndarray | None = None) -> dict:
     """The scene with its geometric world planes (and the pack's
     geometric columns) made again from ``instances`` in numpy, under the
-    build's triangle order ``perm``; every other table is the scene's.
-    The new planes, the traversal kernel's triangle table derived from
-    them (``traverse.tri_table``) and the pack are numpy arrays, and the
-    new pack is also returned as ``_pack_host``."""
+    build's triangle order ``perm``, and, in a scene with TLAS tables,
+    its instances' inverses and world boxes (the instances grouped per
+    BLAS in the order the build first saw their mesh slots); every other
+    table is the scene's. The new planes, the traversal kernel's triangle
+    table derived from them (``traverse.tri_table``), the pack and the
+    instance tables are numpy arrays, and the new pack is also returned
+    as ``_pack_host``."""
     cat = _transform_triangles_all(instances)
     out = dict(scene)
     for k in _GEOMETRIC_PLANES:
@@ -765,6 +823,15 @@ def retransform_instances(scene: dict, instances: list[InstancedMesh],
         if tp is not None:
             out["tri_pack"] = tp
             out["_pack_host"] = tp
+    if "tlas" in scene:
+        tl = dict(scene["tlas"])
+        blas_list = [dict(b) for b in tl["blas"]]
+        roots = [(_host(b["root_lo"]), _host(b["root_hi"]))
+                 for b in blas_list]
+        for bl, t in zip(blas_list, _instance_tables(instances, roots)):
+            bl.update(t)
+        tl["blas"] = tuple(blas_list)
+        out["tlas"] = tl
     return out
 
 
@@ -782,9 +849,13 @@ def refit_deformed(scene: dict, instances: list[InstancedMesh],
     tensors; the tables made here are numpy, for ``scene_to_torch``.
 
     Returns the new scene, or None when the native refit is unavailable
-    (the caller builds in full)."""
+    or the scene has TLAS tables (the caller builds in full): a
+    deformation changes the BLASes' object-space geometry, which this
+    refit does not refresh."""
     from ..native import native_refit_bvh
 
+    if "tlas" in scene:
+        return None
     out = retransform_instances(scene, instances, perm, pack_host=pack_host)
     verts = out["tri_vertices"]                 # (T, 3, 3), build order
     inv_p = np.argsort(perm).astype(np.int64)
@@ -875,7 +946,8 @@ def scene_to_torch(scene_np: dict, device) -> dict:
     traversal kernel's node table (``traverse.node_table``) and one with
     triangles its triangle table (``traverse.tri_table``, "tri_table";
     the host refit brings its own, ``retransform_instances``'), made here
-    once per build and once per host refit."""
+    once per build and once per host refit; each BLAS of the TLAS tables
+    gains its own ("nodes" and "tri_table") once per build."""
     def conv(x, key=None):
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()
@@ -903,4 +975,6 @@ def scene_to_torch(scene_np: dict, device) -> dict:
         out["bvh"]["nodes"] = node_table(out["bvh"])
     if "tri_vertices" in out and "tri_table" not in out:
         out["tri_table"] = tri_table(tri_edges(out["tri_vertices"]))
+    for b in out.get("tlas", {}).get("blas", ()):
+        walk_tables(b)
     return out

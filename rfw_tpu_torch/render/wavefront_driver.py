@@ -13,6 +13,9 @@ lane compaction between depths.
   device under a traced trip count; eager PyTorch needs it on the host
   to size the chunk loop.
 * After the last depth the radiance scatters back to pixel order by pid.
+  Depth 0's aux planes (the denoiser's guide normals and depths) stay in
+  the lanes' tile-permuted order; ``aux_inverse`` orders them by pixel,
+  once a frame, when the engine denoises.
 
 Every random draw is keyed by pixel id (+ sample, depth), so the
 compacted frame equals the fused ``trace_sample`` frame.
@@ -102,6 +105,8 @@ class WavefrontDriver:
         pid_l = self._pid.long()
         self._sx, self._sy = pid_l % width, pid_l // width
         self._inv_np = tp[1] if tp is not None else None
+        self._inv = (torch.from_numpy(self._inv_np).to(self.device).long()
+                     if tp is not None else None)
         self._pc = None
         self._pc_key = None
         self.depth_times: list[float] = []
@@ -118,19 +123,24 @@ class WavefrontDriver:
             self._pc, self._pc_key = pc, key
         return self._pc
 
-    def _stage(self, scene, view, state, sample_index, probe_lane, depth):
+    def _stage(self, scene, view, state, sample_index, probe_lane, depth,
+               with_aux: bool = True):
         return depth_stage(scene, view, state, self.width, depth,
                            sample_index, probe_lane, self.config,
                            self._intersector, tex_flags=self._tex_flags,
-                           sort_rays=False, height=self.height)
+                           sort_rays=False, height=self.height,
+                           with_aux=with_aux)
 
     def step(self, scene, accumulator, view, sample_index: int,
-             probe_index: int, depth_times: list | None = None):
+             probe_index: int, depth_times: list | None = None,
+             with_aux: bool = True):
         """One sample for the whole frame. Returns (accumulator, probe,
-        stats) with stats {"ray_count_d", "shadow_count_d"} as device
-        scalars. With ``depth_times`` (a list), the device is synchronised
-        after each depth and the depth's wall time (its stages and the
-        compaction after it) is appended, in seconds."""
+        stats, aux) with stats {"ray_count_d", "shadow_count_d"} as
+        device scalars and aux depth 0's {"normal" (N, 3), "depth" (N,)}
+        in lane order (``aux_inverse``), None unless ``with_aux``. With ``depth_times`` (a list),
+        the device is synchronised after each depth and the depth's wall
+        time (its stages and the compaction after it) is appended, in
+        seconds."""
         cfg, n, chunk = self.config, self.n, self.chunk
         probe_lane = (probe_index if self._inv_np is None
                       else int(self._inv_np[probe_index]))
@@ -138,6 +148,7 @@ class WavefrontDriver:
         packed = torch.empty((n, 18), device=self.device)
         stats = {}
         probe = None
+        aux = []
         timer = Timer()
         nc = n // chunk
         for depth in range(cfg.max_path_length + 1):
@@ -152,12 +163,14 @@ class WavefrontDriver:
                         pixel_cache={k: v[sl] for k, v in pc.items()})
                 else:
                     state = _unpack_state(packed[sl])
-                out, st, probe_c = self._stage(scene, view, state,
-                                               sample_index,
-                                               rel if in_chunk else 0, depth)
+                out, st, probe_c, aux_c = self._stage(
+                    scene, view, state, sample_index, rel if in_chunk else 0,
+                    depth, with_aux=with_aux)
                 packed[sl] = _pack_state(out)
                 if in_chunk:
                     probe = probe_c
+                if depth == 0 and with_aux:
+                    aux.append(aux_c)
                 for k, v in st.items():
                     key = f"{k}_{depth}"
                     stats[key] = stats[key] + v if key in stats else v
@@ -173,23 +186,33 @@ class WavefrontDriver:
         pid = packed[:, 17].contiguous().view(torch.int32).long()
         radiance = torch.empty((n, 3), device=self.device)
         radiance[pid] = packed[:, 13:16]
-        return accumulator + radiance, probe, stats
+        aux = ({k: torch.cat([a[k] for a in aux]) for k in aux[0]}
+               if with_aux else None)
+        return accumulator + radiance, probe, stats, aux
+
+    def aux_inverse(self, aux):
+        """``step``'s aux planes from lane order to pixel order."""
+        if self._inv is None:
+            return aux
+        return {k: v[self._inv] for k, v in aux.items()}
 
     def step_profiled(self, scene, accumulator, view, sample_index: int,
-                      probe_index: int):
+                      probe_index: int, with_aux: bool = True):
         """``step`` with a device sync after each depth, its wall times in
         ``depth_times`` (the per-stage RenderStats split); the frame is
         the same."""
         self.depth_times = []
         return self.step(scene, accumulator, view, sample_index,
-                         probe_index, depth_times=self.depth_times)
+                         probe_index, depth_times=self.depth_times,
+                         with_aux=with_aux)
 
     def step_multi(self, scene, accumulator, view, sample_index: int,
-                   probe_index: int, n_samples: int):
-        """``n_samples`` consecutive samples; probe and stats are the
-        last sample's."""
-        probe = stats = None
+                   probe_index: int, n_samples: int, with_aux: bool = True):
+        """``n_samples`` consecutive samples; probe, stats and aux are the
+        last sample's (only the last builds aux)."""
+        probe = stats = aux = None
         for s in range(n_samples):
-            accumulator, probe, stats = self.step(
-                scene, accumulator, view, sample_index + s, probe_index)
-        return accumulator, probe, stats
+            accumulator, probe, stats, aux = self.step(
+                scene, accumulator, view, sample_index + s, probe_index,
+                with_aux=with_aux and s == n_samples - 1)
+        return accumulator, probe, stats, aux

@@ -11,6 +11,8 @@ when the caller asks for it.
 from __future__ import annotations
 
 import enum
+import os
+import zipfile
 from typing import Sequence
 
 import numpy as np
@@ -66,6 +68,17 @@ class RenderSystem:
     @property
     def context(self) -> EngineContext:
         return self._context
+
+    def set_context(self, engine: str | EngineContext) -> None:
+        """Swap the engine at run time; the next ``synchronize`` uploads
+        the whole scene to it."""
+        if isinstance(engine, str):
+            engine = create_engine(engine, self.config, device=self.device)
+        self._context = engine
+        self._changed = (Changed.MODELS | Changed.INSTANCES
+                         | Changed.MATERIALS | Changed.LIGHTS
+                         | Changed.AREA_LIGHTS | Changed.SKYBOX
+                         | Changed.TEXTURES)
 
     # -- scene building ------------------------------------------------------
 
@@ -323,21 +336,79 @@ class RenderSystem:
 
     def render_tonemapped(self, camera: Camera | None = None,
                           status: RenderStatus | None = None,
-                          samples: int = 1) -> np.ndarray:
+                          samples: int = 1,
+                          fxaa: bool = False) -> np.ndarray:
+        """``render_frame`` and the ACES pass, with ``fxaa`` the FXAA pass
+        over the tonemapped frame too."""
         cam = camera or self.camera
         hdr = self.render_frame(cam, status, samples)
-        return self.tonemap_frame(hdr, cam.brightness, cam.contrast)
+        return self.tonemap_frame(hdr, cam.brightness, cam.contrast,
+                                  fxaa=fxaa)
 
     def tonemap_frame(self, hdr: np.ndarray, brightness: float | None = None,
-                      contrast: float | None = None) -> np.ndarray:
-        """The ACES pass for a resolved HDR frame."""
+                      contrast: float | None = None,
+                      fxaa: bool = False) -> np.ndarray:
+        """The ACES pass for a resolved HDR frame (then FXAA with
+        ``fxaa``); brightness and contrast default to the camera's."""
         if brightness is None:
             brightness = self.camera.brightness
         if contrast is None:
             contrast = self.camera.contrast
         ldr = tonemap.tonemap(torch.as_tensor(hdr, device=self.device),
                               brightness, contrast)
+        if fxaa:
+            ldr = tonemap.fxaa(ldr)
         return ldr.cpu().numpy()
+
+    # -- progressive-render checkpoint ---------------------------------------
+
+    def save_render_state(self, path: str) -> bool:
+        """Write the accumulator, its sample count, its size and the
+        camera to ``path`` (".npz" appended when missing), so that a
+        render can resume in another process. False when nothing was
+        rendered at the engine's size."""
+        state = self._context.get_render_state()
+        if state is None:
+            return False
+        acc, spp = state
+        # the engine's size: the camera may have been resized since
+        w, h = getattr(self._context, "_size", self.camera.pixel_count)
+        if acc.shape[0] != w * h:
+            return False
+        if not path.endswith(".npz"):
+            path += ".npz"
+        np.savez(path, accumulator=acc, sample_count=spp, width=w, height=h,
+                 camera=self.camera.serialize_bytes())
+        return True
+
+    def load_render_state(self, path: str) -> bool:
+        """Restore ``save_render_state``'s file; the next frame (CONVERGE)
+        adds to it. False, with nothing changed, for a missing, corrupt or
+        mismatched file."""
+        if not path.endswith(".npz") and not os.path.exists(path):
+            path += ".npz"
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                w, h = int(z["width"]), int(z["height"])
+                acc = np.asarray(z["accumulator"], np.float32)
+                spp = int(z["sample_count"])
+                cam = bytes(z["camera"]) if "camera" in z.files else None
+        except (OSError, EOFError, KeyError, IndexError, TypeError,
+                ValueError, zipfile.BadZipFile):
+            return False
+        if acc.shape != (w * h, 3):
+            return False
+        if cam is not None:
+            self.camera = Camera.deserialize_bytes(cam)
+        self.camera.resize(w, h)
+        self._context.resize(w, h)
+        # upload pending scene changes first: an update restarts the
+        # accumulation and would drop the restored samples
+        self.synchronize()
+        self._context.update()
+        self._context.set_render_state(acc, spp)
+        self._should_reset = False
+        return True
 
     # -- probe, settings, stats ---------------------------------------------
 

@@ -7,8 +7,8 @@ Run from the repository root. KERNEL is ``enum``, ``expand``,
 each named ``constexpr int NAME = ...;`` takes the given value (for
 example ``enum kEnumCells=1``: one cell a thread; ``tvisit
 kTvisitRays=1``: one ray a thread; ``expand kExpandSlots=2``: two child
-slots a thread; ``traverse kTraversePersistent=0``: one thread a ray
-over a plain grid). The script builds both libraries, builds chip_smoke.py's
+slots a thread; ``traverse kTraverseThreads=64``: blocks of 64
+threads). The script builds both libraries, builds chip_smoke.py's
 1080p slice scene (switched to the tvisit intersector for ``expand`` and
 ``tvisit``) and takes its phase-3 streams (a primary chunk and a bounce
 chunk; for ``traverse`` also the depth-0 fused shadow launch). On each
@@ -147,9 +147,6 @@ def main(argv) -> int:
             consts, os.path.join(cuda_lib.BUILD_DIR, "variant_src")))):
         libs[which], log = _load(sources)
         ptxas[which] = chip_smoke.ptxas_report(log).get(f"{kernel}_kernel")
-        if kernel == "traverse":       # its persistent grid
-            from ..ops import traverse
-            ptxas[which]["lanes"] = traverse.resident_lanes("cuda")
         print(f"{which}: {kernel}_kernel ptxas {ptxas[which]}")
 
     cuda_lib._lib = libs["built"]

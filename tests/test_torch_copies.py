@@ -25,6 +25,8 @@ from rfw_tpu.scene import skybox as j_skybox
 from rfw_tpu.scene import texture as j_texture
 
 import chip_smoke
+import test_fbx
+import test_loaders
 import rfw_tpu_torch.scene as scene
 from rfw_tpu_torch import camera, config, native
 from rfw_tpu_torch.bvh import builder
@@ -133,6 +135,57 @@ def test_loaders_give_equal_triangles(tmp_path, ext):
         for f in dataclasses.fields(t_ref):
             a, b = getattr(t_ref, f.name), getattr(t_port, f.name)
             assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+
+
+def _write_dae(path):
+    with open(path, "w") as f:
+        f.write(test_loaders._DAE)
+
+
+def _write_fbx_ascii(path):
+    with open(path, "w") as f:
+        f.write(test_fbx._ASCII_FBX)
+
+
+# tests/test_loaders.py's Collada quad (polylist, node translate, bound
+# lambert material) and tests/test_fbx.py's binary (zlib arrays, a quad
+# to triangulate, uvs, a model translation, a material) and ASCII quads
+SCENE_FILES = {"dae": ("quad.dae", _write_dae),
+               "fbx": ("quad.fbx", test_fbx._write_fbx),
+               "fbx_ascii": ("quad_ascii.fbx", _write_fbx_ascii)}
+
+
+@pytest.mark.parametrize("kind", sorted(SCENE_FILES))
+def test_collada_and_fbx_loaders_equal(tmp_path, kind):
+    name, write = SCENE_FILES[kind]
+    path = str(tmp_path / name)
+    write(path)
+    mls = [pkg.MaterialList() for pkg in (j_scene, scene)]
+    objs = [pkg.load_object(path, ml) for pkg, ml in zip((j_scene, scene),
+                                                         mls)]
+    assert len(objs[0].meshes) == len(objs[1].meshes) == 1
+    t_ref, t_port = (o.meshes[0].triangles() for o in objs)
+    assert t_port.count == t_ref.count == 2
+    assert t_port.vertices[..., 0].min() >= 2.0 - 1e-6   # the translation
+    for f in dataclasses.fields(t_ref):
+        a, b = getattr(t_ref, f.name), getattr(t_port, f.name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+    mats = [ml.generate_device_materials() for ml in mls]
+    assert mats[0].keys() == mats[1].keys()
+    for k in mats[0]:
+        assert np.array_equal(mats[0][k], mats[1][k]), k
+    mid = int(np.atleast_1d(t_port.material)[0])
+    assert np.allclose(mats[1]["color"][mid], [0.8, 0.1, 0.1], atol=1e-6)
+
+
+@pytest.mark.parametrize("name, body", [("bad.dae", b"<notcollada/>"),
+                                        ("bad.fbx", b"not an fbx file")])
+def test_collada_and_fbx_reject_malformed(tmp_path, name, body):
+    p = tmp_path / name
+    p.write_bytes(body)
+    for pkg in (j_scene, scene):
+        with pytest.raises(ValueError):
+            pkg.load_object(str(p), pkg.MaterialList())
 
 
 def _lights(mod, rng):

@@ -14,8 +14,8 @@ on the CPU against the goldens and against rfw_tpu.
 * The ``dense`` intersector agrees with ``bvh`` to
   tests/test_integrator.py's bar.
 * ``validate()`` raises on the broken scenes rfw_tpu's raises on; the
-  engine list and the intersector setting are rfw_tpu's, less what is
-  not ported.
+  engine list is rfw_tpu's but ``raster``, and the settings (every
+  intersector, ``tlas`` included, and ``denoise``) are rfw_tpu's.
 """
 
 import os
@@ -34,7 +34,7 @@ from test_integrator import make_cornell as j_cornell
 
 from rfw_tpu_torch.config import RenderConfig
 from rfw_tpu_torch.render import RenderStatus, context, create_engine
-from rfw_tpu_torch.render.intersectors import FACTORIES, NOT_PORTED
+from rfw_tpu_torch.render.intersectors import FACTORIES
 from rfw_tpu_torch.system import RenderSystem
 
 CORNELL = os.path.join(golden_scenes.GOLDEN_DIR, "cornell_64_8spp.npy")
@@ -174,18 +174,22 @@ def test_engine_list_and_settings():
     for name in ported:
         eng = create_engine(name, device="cpu")
         ref = j_create_engine(name)
-        [setting] = eng.get_available_settings()
-        assert setting.name == "intersector"
-        want = next(s for s in ref.get_available_settings()
-                    if s.name == "intersector")
-        assert setting.options == sorted(set(want.options) - set(NOT_PORTED))
+        settings = eng.get_available_settings()
+        assert [s.name for s in settings] == ["intersector", "denoise"]
+        want = {s.name: s for s in ref.get_available_settings()}
+        setting = settings[0]
+        assert setting.options == want["intersector"].options
         assert setting.options == sorted(FACTORIES)
         # rfw_tpu's wavefront takes bvh off the TPU; the port's takes the
         # visit kernels on every device
-        expect = "visit" if name == "wavefront" else want.value
+        expect = ("visit" if name == "wavefront"
+                  else want["intersector"].value)
         assert setting.value == expect
+        assert (settings[1].value, settings[1].options) == (
+            want["denoise"].value, want["denoise"].options)
     eng = create_engine("megakernel", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.set_setting("intersector", "tlas")
+    eng.set_setting("intersector", "tlas")
+    assert eng.config.use_tlas
+    assert eng.get_available_settings()[0].value == "tlas"
     with pytest.raises(ValueError, match="unknown intersector"):
         eng.set_setting("intersector", "nope")

@@ -116,12 +116,13 @@ def test_step_multi_equals_looped_step():
     drv = eng._driver
     view = {k: torch.as_tensor(np.asarray(v, np.float32))
             for k, v in _view().items()}
-    acc_m, probe_m, stats_m = drv.step_multi(
+    acc_m, probe_m, stats_m, aux_m = drv.step_multi(
         eng._scene, torch.zeros((64 * 48, 3)), view, 0, 100, 3)
     acc = torch.zeros((64 * 48, 3))
     for s in range(3):
-        acc, probe, stats = drv.step(eng._scene, acc, view, s, 100)
+        acc, probe, stats, aux = drv.step(eng._scene, acc, view, s, 100)
     assert torch.equal(acc_m, acc) and torch.equal(probe_m, probe)
+    assert all(torch.equal(aux_m[k], aux[k]) for k in aux)
     assert stats_m.keys() == stats.keys()
     for k in stats:
         assert int(stats_m[k]) == int(stats[k]), k
