@@ -107,12 +107,38 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    closer; the denoise timed between CUDA events), FXAA (finite, in [0,
    1], timed); then 8 moves of one sphere, each update timed, none a
    full build, and the moved frame within RMSE 2e-3 of a fresh tlas
-   build.
+   build;
+11. the raster preview, tiles, the App and the live viewer: (a)
+   RenderSystem("raster") on phase 5's scene and camera, median of 5
+   synced 1080p frames and their peak memory (traverse must launch,
+   enum and visit not), two frames equal bit for bit, the async
+   CONVERGE and samples=2 frames equal to the sync RESET frame, finite
+   and lit, and one frame's traverse launches (one a chunk) bit for bit
+   against traverse_wide_ref on their tensors; then the Cornell
+   scene at 64², the card's raster frame within RMSE 2e-3 of the CPU's;
+   (b) BASELINE config 5's path on one card: phase 5's scene through
+   wavefront with n_devices=4 (four tiles round-robin on cuda:0, one
+   compacted driver a tile) against n_devices=0, RESET plus 4 spp within
+   1e-5 (printed whether bit for bit), the primary ray count and the
+   probe equal, enum and visit launched; tile 1's depth-1 enum launch
+   and visit launches (closest, any hit) bit for bit against their
+   plain versions on their tensors; both timed as phase 5; then
+   megakernel with n_devices=4 against n_devices=0, 2 spp, the same
+   checks with traverse; (c) an App on phase 5's scene at 1080p on
+   wavefront, 3 frames of 2 spp with an orbit-and-brightness update,
+   pipelined and sequential frames equal bit for bit (wall ms a frame
+   of each), then an update raising ValueError surfaces as itself with
+   no frame left in flight, and the next run works; PNGs to a
+   temporary directory; (d) the LiveViewer on 127.0.0.1 at 512² on
+   megakernel (Cornell, 20 frames, in a thread): the frame is a PNG of
+   that size, a keys POST moves the camera and restarts the
+   accumulation, a material POST lands, a probe POST gives a probe, and
+   /stats has rfw_tpu's keys.
 
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON (its
-launches from phases 5, 6, 9 and 10, and split by phase in
+launches from phases 5, 6, 9, 10 and 11, and split by phase in
 ``launches_by_phase``; ``ms`` one launch between two events,
 ``device_ms`` the device time), the card's name and power limit, and
 the run's JSON result.
@@ -1937,6 +1963,452 @@ def phase_tlas(png, profile):
     return launches, err
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the raster preview, tiles, the App and the live viewer
+# ---------------------------------------------------------------------------
+
+PREVIEW_FRAMES = 5
+TILES = 4
+PROBE_XY = (960, 700)          # in tile 2 of 4 (rows 540-809)
+APP_FRAMES, APP_SAMPLES = 3, 2
+VIEWER_SIZE, VIEWER_FRAMES = 512, 20
+
+
+def _slice_system(engine, config, work):
+    """A RenderSystem on phase 5's scene and camera, built."""
+    from rfw_tpu_torch.system import RenderSystem
+    rs = RenderSystem(engine, config, device="cuda")
+    n_tris = build_slice_scene(rs, work)
+    rs.synchronize()
+    return rs, n_tris
+
+
+def _raster_against_plain(rs) -> float:
+    """One 1080p raster frame with the traversal kernel's launches caught
+    (one a chunk of the frame), each held against traverse_wide_ref on
+    the same tensors: t, prim, u and v bit for bit. Returns the largest
+    kernel-plain difference of t."""
+    import torch
+    from rfw_tpu_torch.ops import traverse
+    from rfw_tpu_torch.render import RenderStatus
+    launch, caught = traverse.traverse_wide, []
+
+    def catching(*a, **kw):
+        out = launch(*a, **kw)
+        caught.append((a, kw, out))
+        return out
+
+    traverse.traverse_wide = catching
+    try:
+        rs.render_frame(status=RenderStatus.RESET)
+    finally:
+        traverse.traverse_wide = launch
+    _check(bool(caught), "the raster frame launched no traversal")
+    err = 0.0
+    for i, (a, kw, out_k) in enumerate(caught):
+        out_p = traverse.traverse_wide_ref(*a, **kw)
+        torch.cuda.synchronize()
+        _check(_bits_equal(out_k, out_p),
+               f"traverse kernel != plain on raster launch {i}")
+        err = max(err, float((out_k[0] - out_p[0]).abs().max()))
+        print(f"phase 11: traverse kernel vs traverse_wide_ref on raster "
+              f"launch {i} of {len(caught)}: {a[0].shape[0]} lanes, "
+              f"{int((out_k[1] >= 0).sum())} hits; equal bit for bit")
+    return err
+
+
+def phase_preview(work):
+    """Phase 11 (a): the raster preview at 1080p on phase 5's scene and
+    camera, timed (median of 5 synced frames, and their peak memory),
+    deterministic and the same through the async path whatever status
+    and sample count, its traversal launches held to the plain version;
+    then the Cornell scene at 64² against the port's CPU raster frame.
+    Returns the timed frames' launches and the largest kernel-plain
+    difference of t."""
+    import torch
+    from rfw_tpu_torch.config import RenderConfig
+    from rfw_tpu_torch.ops import cuda_lib
+    from rfw_tpu_torch.render import RenderStatus
+    from rfw_tpu_torch.system import RenderSystem
+    t0 = time.perf_counter()
+    rs, n_tris = _slice_system("raster", RenderConfig(), work)
+    print(f"phase 11: raster: scene of {n_tris} triangles built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    first = rs.render_frame(status=RenderStatus.RESET)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    times = []
+    for _ in range(PREVIEW_FRAMES):
+        t0 = time.perf_counter()
+        frame = rs.render_frame(status=RenderStatus.RESET)
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(cuda_lib.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rs.render_frame_async(status=RenderStatus.CONVERGE)
+    converge = rs.finish_frame()
+    rs.render_frame_async(status=RenderStatus.RESET, samples=2)
+    two = rs.finish_frame()
+    print(f"phase 11: raster at 1920x1080: median frame "
+          f"{float(np.median(times)):.2f} ms over {PREVIEW_FRAMES} (synced, "
+          f"the frame read back), frames {[round(t, 2) for t in times]} ms;"
+          f" frame mean {float(frame.mean()):.6g}, max_memory_allocated "
+          f"{peak:.2f} GiB, launches {launches}; "
+          f"two frames equal: {np.array_equal(first, frame)}, async "
+          f"CONVERGE and samples=2 equal the sync frame: "
+          f"{np.array_equal(converge, frame)}, {np.array_equal(two, frame)}")
+    _check(frame.shape == (1080, 1920, 3) and bool(np.isfinite(frame).all())
+           and float(frame.mean()) > 0.01, "raster frame not finite/lit")
+    _check(launches["traverse"] >= PREVIEW_FRAMES
+           and launches["enum"] == 0 and launches["visit"] == 0,
+           f"raster launches {launches}")
+    _check(np.array_equal(first, frame), "raster frames differ")
+    _check(np.array_equal(converge, frame) and np.array_equal(two, frame),
+           "the async raster frames differ from the 1-spp frame")
+    err = _raster_against_plain(rs)
+    del rs
+    torch.cuda.empty_cache()
+    frames = {dev: make_cornell(RenderSystem("raster", RenderConfig(),
+                                             device=dev)).render_frame()
+              for dev in ("cuda", "cpu")}
+    diff = np.abs(frames["cuda"] - frames["cpu"])
+    rmse = _rmse(frames["cuda"], frames["cpu"])
+    print(f"phase 11: raster Cornell 64x64, card vs CPU: RMSE {rmse:.6g} "
+          f"(bar 2e-3), max abs difference {float(diff.max()):.6g}, "
+          f"{int((diff.max(axis=-1) > 1e-3).sum())} pixels apart by > 1e-3")
+    _check(rmse < 2e-3, f"raster Cornell card vs CPU RMSE {rmse} >= 2e-3")
+    return launches, err
+
+
+def _equal_frames(label, rs0, rs4, samples, launch_keys):
+    """RESET plus ``samples`` spp on the untiled and the tiled system:
+    max abs difference < 1e-5, the ray count, the probe. Returns the
+    tiled frame's launches."""
+    from rfw_tpu_torch.ops import cuda_lib
+    from rfw_tpu_torch.render import RenderStatus
+    frames = []
+    for rs in (rs0, rs4):
+        rs.set_probe_index(PROBE_XY)
+        cuda_lib.reset_launch_counts()
+        frames.append(rs.render_frame(status=RenderStatus.RESET,
+                                      samples=samples))
+    launches = dict(cuda_lib.launch_counts)
+    diff = float(np.abs(frames[0] - frames[1]).max())
+    probes = [rs.get_probe_results() for rs in (rs0, rs4)]
+    primary = rs4.get_render_stats().primary_count
+    print(f"phase 11: {label}: {TILES} tiles vs one, RESET + {samples} spp:"
+          f" max abs difference {diff:.6g} (bar 1e-5), equal bit for bit: "
+          f"{np.array_equal(frames[0], frames[1])}; primary rays "
+          f"{primary}; probes {probes[0]}, {probes[1]}; tiled launches "
+          f"{launches}")
+    _check(diff < 1e-5, f"{label}: tiled frame differs by {diff}")
+    _check(primary == 1920 * 1080 and probes[0] == probes[1],
+           f"{label}: primary {primary}, probes {probes}")
+    _check(all(launches[k] > 0 for k in launch_keys),
+           f"{label}: kernels not launched on the tiles: {launches}")
+    return launches
+
+
+def _tile_against_plain(rs, tile: int = 1, depth: int = 1) -> dict:
+    """One RESET 1-spp frame of the tiled wavefront system with tile
+    ``tile``'s depth-``depth`` launches caught: the first enum launch and
+    the first visit launch of each mode (closest, any hit), on the lanes
+    that tile's driver compacted. Each is held against its plain version
+    on the same tensors, bit for bit. Returns the largest kernel-plain
+    difference per kernel."""
+    import torch
+    from rfw_tpu_torch.ops import visit_intersect as vi
+    from rfw_tpu_torch.render import RenderStatus
+    from rfw_tpu_torch.render.wavefront_driver import WavefrontDriver
+    stage, enum, visit = WavefrontDriver._stage, vi.block_entries, vi.visit
+    where, caught = [None], {}
+
+    def staging(self, *a, **kw):
+        # a: scene, view, state, sample_index, probe_lane, depth
+        where[0] = (self.pixel_offset // self.n, a[5])
+        try:
+            return stage(self, *a, **kw)
+        finally:
+            where[0] = None
+
+    def enum_caught(rays, bounds8, n_real):
+        out = enum(rays, bounds8, n_real)
+        if where[0] == (tile, depth):
+            caught.setdefault("enum", (rays, bounds8, out))
+        return out
+
+    def visit_caught(rays, ids, counts, tnears, gran, eps, any_hit,
+                     walked=None):
+        out = visit(rays, ids, counts, tnears, gran, eps, any_hit,
+                    walked=walked)
+        if where[0] == (tile, depth):
+            caught.setdefault(("visit", bool(any_hit)),
+                              (rays, ids, counts, tnears, gran, eps, out))
+        return out
+
+    WavefrontDriver._stage = staging
+    vi.block_entries, vi.visit = enum_caught, visit_caught
+    try:
+        rs.render_frame(status=RenderStatus.RESET)
+    finally:
+        WavefrontDriver._stage = stage
+        vi.block_entries, vi.visit = enum, visit
+    _check(set(caught) == {"enum", ("visit", False), ("visit", True)},
+           f"tile {tile} depth {depth}: launches caught "
+           f"{sorted(map(str, caught))}")
+    rays, bounds8, e_k = caught["enum"]
+    e_p = vi.block_entries_ref(rays, bounds8)
+    torch.cuda.synchronize()
+    _check(torch.equal(e_k, e_p),
+           f"enum kernel != plain on tile {tile} depth {depth}")
+    err = {"enum": float((e_k - e_p).abs().max()), "visit": 0.0}
+    print(f"phase 11: enum kernel vs block_entries_ref on tile {tile}'s "
+          f"depth-{depth} launch: {rays.shape[1]} lanes, "
+          f"{int((rays[3] > 0).sum())} live, {bounds8.shape[1]} cells; "
+          f"equal bit for bit")
+    for any_hit in (False, True):
+        rays, ids, counts, tnears, g, eps, (t_k, s_k) = caught[
+            ("visit", any_hit)]
+        t_p, s_p = vi.visit_ref(rays, ids, counts, tnears, g.planes,
+                                g.super_g, g.k_size, eps, any_hit)
+        torch.cuda.synchronize()
+        mode = "any hit" if any_hit else "closest"
+        _check(torch.equal(t_k, t_p) and torch.equal(s_k, s_p),
+               f"visit kernel != plain on tile {tile} depth {depth} {mode}")
+        err["visit"] = max(err["visit"], float((t_k - t_p).abs().max()))
+        print(f"phase 11: visit kernel vs visit_ref on tile {tile}'s "
+              f"depth-{depth} {mode} launch: {rays.shape[1]} lanes, "
+              f"{int((s_k >= 0).sum())} hits; equal bit for bit")
+    return err
+
+
+def phase_tiles(work):
+    """Phase 11 (b): BASELINE config 5's path on the one card: phase 5's
+    scene through wavefront with n_devices=4 (four tiles round-robin on
+    cuda:0, one compacted driver a tile) against n_devices=0, then the
+    same on megakernel (make_engine_step over the traversal kernel).
+    Tile 1's depth-1 enum and visit launches are held to their plain
+    versions. Returns the tiled systems' launches in the timed windows
+    and the largest kernel-plain differences."""
+    import torch
+    from rfw_tpu_torch.config import RenderConfig
+    systems = {}
+    for n_dev in (0, TILES):
+        t0 = time.perf_counter()
+        systems[n_dev], n_tris = _slice_system(
+            "wavefront", RenderConfig(n_devices=n_dev), work)
+        print(f"phase 11: wavefront, n_devices={n_dev}: scene built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    from rfw_tpu_torch.parallel import make_tile_mesh
+    print(f"phase 11: the tiles' devices: "
+          f"{[str(d) for d in make_tile_mesh(TILES)]}")
+    _equal_frames("wavefront", systems[0], systems[TILES], 4,
+                  ("enum", "visit"))
+    err = _tile_against_plain(systems[TILES])
+    launches = None
+    for n_dev, rs in systems.items():
+        out, _ = phase_slice(rs, n_tris, f"phase 11 wavefront n_devices="
+                             f"{n_dev}", None, False, ("enum", "visit"))
+        if n_dev:
+            launches = out
+    del systems, rs
+    torch.cuda.empty_cache()
+    systems = [_slice_system("megakernel", RenderConfig(n_devices=n_dev),
+                             work)[0] for n_dev in (0, TILES)]
+    mk = _equal_frames("megakernel", *systems, 2, ("traverse",))
+    del systems
+    torch.cuda.empty_cache()
+    return launches, mk, err
+
+
+def phase_app(work):
+    """Phase 11 (c): an App on phase 5's scene at 1080p on wavefront, 3
+    frames of 2 spp with an orbit-and-brightness update, pipelined and
+    sequential (bit for bit equal frames, the wall ms a frame of each);
+    then an update that raises ValueError must surface as itself, with no
+    frame left in flight, and the next run must work. PNGs go to
+    ``work``."""
+    import torch
+    from rfw_tpu_torch.app import App
+    from rfw_tpu_torch.config import RenderConfig
+
+    class Orbit(App):
+        def __init__(self, tag):
+            super().__init__(1920, 1080, "wavefront", RenderConfig(),
+                             camera_file=os.path.join(work, f"{tag}.bin"),
+                             output_dir=os.path.join(work, tag))
+            self.frames, self.stamps, self.ticks = [], [], 0
+            self.fail = False
+
+        def init(self, rs):
+            if not rs.materials.materials:
+                build_slice_scene(rs, work)
+
+        def update(self, rs, dt):
+            if self.fail:
+                raise ValueError("update failed on purpose")
+            self.ticks += 1
+            ang = 0.05 * self.ticks
+            rs.camera.look_at([22.0 * np.sin(ang), 12.0,
+                               -22.0 * np.cos(ang)], [0.0, 1.0, 2.0])
+            rs.camera.brightness = 0.05 * self.ticks
+            return True
+
+        def post_render(self, frame, frame_index):
+            super().post_render(frame, frame_index)
+            self.frames.append(frame)
+            self.stamps.append(time.perf_counter())
+
+    runs = {}
+    for pipeline in (True, False):
+        app = Orbit("pipe" if pipeline else "seq")
+        app.run(frames=APP_FRAMES, samples_per_frame=APP_SAMPLES,
+                pipeline=pipeline)
+        runs[pipeline] = app
+        ms = np.diff(app.stamps) * 1e3
+        print(f"phase 11: App, pipeline={pipeline}: {APP_FRAMES} frames of "
+              f"{APP_SAMPLES} spp at 1920x1080 (wavefront, tonemap, FXAA, "
+              f"PNG), wall ms a frame after the first "
+              f"{[round(float(m), 1) for m in ms]}, PNGs "
+              f"{len(os.listdir(app.output_dir))}")
+    pipe, seq = runs[True], runs[False]
+    equal = [np.array_equal(a, b) for a, b in zip(pipe.frames, seq.frames)]
+    print(f"phase 11: App pipelined vs sequential frames equal bit for bit: "
+          f"{equal}; frames differ from each other: "
+          f"{not np.array_equal(pipe.frames[0], pipe.frames[1])}")
+    _check(len(pipe.frames) == len(seq.frames) == APP_FRAMES and all(equal),
+           "App pipelined frames differ from the sequential ones")
+    _check(all(f.shape == (1080, 1920, 3) and bool(np.isfinite(f).all())
+               for f in pipe.frames)
+           and not np.array_equal(pipe.frames[0], pipe.frames[1]),
+           "App frames not finite or not moving")
+    del seq, runs
+    pipe.fail = True
+    try:
+        pipe.run(frames=2, samples_per_frame=APP_SAMPLES)
+        raised = None
+    except ValueError as e:
+        raised = e
+    in_flight = pipe.rs.context._pending is not None
+    pipe.fail = False
+    pipe.run(frames=1, samples_per_frame=APP_SAMPLES)
+    print(f"phase 11: App update raising ValueError: surfaced as {raised!r},"
+          f" frame in flight after it: {in_flight}; the next run gave frame "
+          f"{len(pipe.frames)}")
+    _check(raised is not None and not in_flight
+           and len(pipe.frames) == APP_FRAMES + 1,
+           "App: the update's ValueError did not surface cleanly")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def _png_size(png: bytes):
+    """(width, height) from a PNG's IHDR chunk."""
+    _check(png[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    return (int.from_bytes(png[16:20], "big"),
+            int.from_bytes(png[20:24], "big"))
+
+
+def phase_viewer():
+    """Phase 11 (d): the LiveViewer on 127.0.0.1 (a free port) at 512² on
+    megakernel (the Cornell scene), at most 20 frames, in a thread: the
+    frame is a PNG of that size, a keys POST moves the camera and restarts
+    the accumulation, a material POST lands, a probe POST gives a probe,
+    and /stats has rfw_tpu's keys."""
+    import threading
+    import urllib.request
+    from rfw_tpu_torch.config import RenderConfig
+    from rfw_tpu_torch.system import RenderSystem
+    from rfw_tpu_torch.viewer import LiveViewer
+    rs = make_cornell(RenderSystem("megakernel", RenderConfig(),
+                                   device="cuda"), VIEWER_SIZE)
+    viewer = LiveViewer(rs, VIEWER_SIZE, VIEWER_SIZE, host="127.0.0.1",
+                        port=0)
+    url = f"http://127.0.0.1:{viewer.port}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return r.read()
+
+    def stats():
+        return json.loads(get("/stats"))
+
+    def post(**ev):
+        req = urllib.request.Request(url + "/input", method="POST",
+                                     data=json.dumps(ev).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.read()
+
+    def wait(pred, what):
+        for _ in range(1200):
+            out = pred()
+            if out:
+                return out
+            time.sleep(0.025)
+        raise RuntimeError(f"chip_smoke: viewer: timed out waiting for "
+                           f"{what}")
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=viewer.run,
+                              kwargs={"max_frames": VIEWER_FRAMES})
+    thread.start()
+    try:
+        png = wait(lambda: get("/frame.png"), "the first frame")
+        size = _png_size(png)
+        s = wait(lambda: (lambda s: s if s["stats"]["spp"] >= 2 else None)(
+            stats()), "2 samples")
+        keys = sorted(s["stats"])
+        pos0 = rs.camera.position.copy()
+        post(action="keys", keys=["w"])
+        moved = not np.allclose(rs.camera.position, pos0)
+        spp_before = s["stats"]["spp"]
+        post(action="probe", x=VIEWER_SIZE // 2, y=VIEWER_SIZE // 2)
+        post(action="material", index=0, color=[0.9, 0.2, 0.1],
+             roughness=0.3)
+        m0 = rs.get_material(0)
+        s = wait(lambda: (lambda s: s if s["probe"] and s["probe"][2] > 0
+                          and s["stats"]["spp"] < spp_before else None)(
+            stats()), "the reset and the probe")
+    finally:
+        thread.join(timeout=120)
+        if thread.is_alive():
+            viewer.stop()
+            thread.join(timeout=60)
+    print(f"phase 11: viewer at {VIEWER_SIZE}x{VIEWER_SIZE} on megakernel: "
+          f"frame PNG {size}, /stats keys {keys}, keys POST moved the "
+          f"camera: {moved}, spp {spp_before} -> {s['stats']['spp']}, "
+          f"material 0 now {[float(c) for c in np.asarray(m0.color)[:3]]} "
+          f"roughness {float(m0.roughness):.3g}, probe {s['probe']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    want = ["Mrays/s", "deep ms", "primary ms", "rays primary",
+            "rays shadow", "render ms", "secondary ms", "spp"]
+    _check(size == (VIEWER_SIZE, VIEWER_SIZE), f"viewer PNG size {size}")
+    _check(keys == want, f"viewer /stats keys {keys}")
+    _check(moved and s["stats"]["spp"] < spp_before,
+           "viewer: the keys POST did not move the camera and reset spp")
+    _check(abs(float(m0.roughness) - 0.3) < 1e-6
+           and abs(float(np.asarray(m0.color)[0]) - 0.9) < 1e-6,
+           "viewer: the material edit did not land")
+    _check(len(s["probe"]) == 3 and s["probe"][1] >= 0,
+           f"viewer probe {s['probe']}")
+    _check(not thread.is_alive(), "viewer thread still running")
+
+
+def phase_11():
+    """Phase 11: the raster preview, tiles, the App and the viewer.
+    Returns the launches of the timed raster frames, the tiled
+    wavefront windows and the tiled megakernel frame, summed, and the
+    largest kernel-plain difference per kernel held in the phase."""
+    with tempfile.TemporaryDirectory() as work:
+        launches, err_traverse = phase_preview(work)
+        tiles_wf, tiles_mk, err = phase_tiles(work)
+        phase_app(work)
+    phase_viewer()
+    err["traverse"] = err_traverse
+    return ({k: launches[k] + tiles_wf[k] + tiles_mk[k] for k in launches},
+            err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--png", help="write the tonemapped 1080p frame here")
@@ -2028,9 +2500,16 @@ def main() -> int:
     print(f"phase 10: {time.perf_counter() - t0:.1f} s; traverse launches "
           f"in the timed windows of phases 9 and 10: {launches['traverse']}"
           f", {launches_10['traverse']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches_11, err_11 = phase_11()
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s; launches in its "
+          f"timed raster frames, tiled wavefront windows and tiled "
+          f"megakernel frame: {launches_11}")
     # each kernel's launches in the timed windows of the phases whose
     # path it is: enum and visit phase 5 (visit), expand and tvisit phase
-    # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas)
+    # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas); all
+    # of them in phase 11 (raster, tiles)
     by_phase = {"enum": {"5": launches["enum"]},
                 "visit": {"5": launches["visit"]},
                 "expand": {"6": launches["expand"]},
@@ -2038,7 +2517,12 @@ def main() -> int:
                 "traverse": {"9": launches["traverse"],
                              "10": launches_10["traverse"]}}
     launches["traverse"] += launches_10["traverse"]
+    for name in KERNELS:
+        by_phase[name]["11"] = launches_11[name]
+        launches[name] += launches_11[name]
     report["traverse"]["err"] = max(report["traverse"]["err"], err_10)
+    for name, e in err_11.items():
+        report[name]["err"] = max(report[name]["err"], e)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print("phase 8: launches per deformation frame (1080p, 1 spp): "
           + json.dumps(launches_8))

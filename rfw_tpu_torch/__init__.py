@@ -1,12 +1,14 @@
 """rfw_tpu_torch — the rfw_tpu path tracer ported to PyTorch and CUDA.
 
 Mirrors the module layout of ``rfw_tpu`` (``ops/``, ``ops/bsdf/``,
-``render/``, ``system.py``) so each counterpart is easy to find. Tensors
-live on the device named by ``RenderSystem(..., device=...)``, the CUDA
-card unless the caller asks for ``"cpu"``; nothing
-here sets a global default device. The kernels of the visit and tvisit
-intersectors are hand-written CUDA (``csrc/``); on CPU tensors their
-plain PyTorch versions run instead.
+``render/``, ``parallel/``, ``system.py``, ``app.py``, ``viewer.py``) so
+each counterpart is easy to find. Tensors live on the device named by
+``RenderSystem(..., device=...)``, the CUDA card unless the caller asks
+for ``"cpu"``; nothing here sets a global default device. The kernels of
+the visit, tvisit and bvh intersectors are hand-written CUDA
+(``csrc/``); on CPU tensors their plain PyTorch versions run instead.
+``RenderConfig(n_devices=k)`` splits a frame into k row-block tiles
+(``parallel/``), driven from one process.
 
 The host-side modules (``config``, ``camera``, ``refs``, ``utils/``,
 ``scene/``, ``native/``) are the port's own copies of ``rfw_tpu``'s, with

@@ -164,3 +164,4 @@ def create_engine(name: str, config: RenderConfig | None = None, *,
 
 def _ensure_imported() -> None:
     from . import engines as _e  # noqa: F401  (registers via decorators)
+    from . import raster as _r  # noqa: F401

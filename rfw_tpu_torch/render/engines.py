@@ -21,6 +21,13 @@ host refit; under ``tlas`` an instance move refreshes only the world
 planes and the instance tables (``scene_data.retransform_instances``),
 and a deformation builds in full (its BLASes change).
 
+With ``config.n_devices`` above 1 every engine renders through
+``parallel/tiles.py``: one contiguous row block of the pixels a tile,
+``wavefront`` on one compacted driver a tile, the others on the fused
+``trace_sample``; the scene's copies on the tiles' devices are dropped
+at every update. A single-device fused frame runs its chunks through
+the same loop, over a mesh of one copy of the engine's device a chunk.
+
 The ``denoise`` setting runs the à-trous filter (``ops/denoise.py``) over
 each finished frame, guided by the last sample's primary-hit normal and
 depth planes, which the integrator builds only while the setting is on.
@@ -37,6 +44,8 @@ from ..config import RenderConfig
 from ..ops.denoise import atrous_denoise
 from ..ops.rng import blue_noise_stack
 from ..ops.tonemap import resolve_accumulator
+from ..parallel import tiles
+from ..parallel.mesh import make_tile_mesh
 from ..scene.lights import pack_lights
 from ..scene.materials import MaterialList
 from ..scene.mesh import TriangleSoA
@@ -45,7 +54,6 @@ from ..utils import Timer, logger
 from . import scene_data
 from .context import (EngineContext, RenderSetting, RenderStatus,
                       register_engine, resolve_device)
-from .integrator import trace_sample
 from .intersectors import FACTORIES, make_intersector
 from .wavefront_driver import WavefrontDriver
 
@@ -116,6 +124,9 @@ class PathTracerEngine(EngineContext):
         self._step = None
         self._step_key = None
         self._driver: WavefrontDriver | None = None
+        # the scene's copies on the tiles' devices (none for a tile on
+        # the engine's own device), dropped on every update
+        self._replicas: dict = {}
         self._pending = None
         self._intersector_name = self.default_intersector
         self._denoise = False
@@ -300,6 +311,7 @@ class PathTracerEngine(EngineContext):
             return
         if not self._meshes:
             raise RuntimeError("no meshes uploaded")
+        self._replicas.clear()
         if self._lights is None:
             self._lights = pack_lights([], [], [], [])
         if self._materials is None:
@@ -388,41 +400,29 @@ class PathTracerEngine(EngineContext):
         cfg = self._integrator_config()
         intersector = make_intersector(self._intersector_name, cfg)
         n_total = width * height
-        n_chunks = max(1, -(-n_total // cfg.max_rays_per_pass))
-        # equal chunks, preferably of whole image rows (keeps the 16x16
-        # tile lane order available)
-        while height % n_chunks and n_chunks < height:
-            n_chunks += 1
-        if height % n_chunks:
-            n_chunks = max(1, -(-n_total // cfg.max_rays_per_pass))
-            while n_total % n_chunks:
-                n_chunks += 1
-        n_local = n_total // n_chunks
         self._driver = None
-        if self.use_wavefront_driver and cfg.compaction and n_chunks > 1:
-            self._driver = WavefrontDriver(width, height, cfg, intersector,
-                                           tex_flags, n_local, self.device)
-            step = self._driver.step
+        if cfg.n_devices and cfg.n_devices > 1:
+            # tiles: each device traces a contiguous row block, on the
+            # compacted driver where this engine uses it
+            mesh = make_tile_mesh(cfg.n_devices, self.device)
+            make = (tiles.make_driver_engine_step
+                    if self.use_wavefront_driver and cfg.compaction
+                    else tiles.make_engine_step)
+            step = make(mesh, width, height, cfg, intersector, tex_flags,
+                        replicas=self._replicas)
         else:
-            def step(scene, accumulator, view, sample_index, probe_index,
-                     with_aux=True):
-                probe, stats, aux = None, {}, []
-                for c in range(n_chunks):
-                    off = c * n_local
-                    rel = min(max(probe_index - off, 0), n_local - 1)
-                    radiance, probe_c, st, aux_c = trace_sample(
-                        scene, view, width, height, sample_index, rel, cfg,
-                        intersector, pixel_offset=off, n_pixels=n_local,
-                        tex_flags=tex_flags, with_aux=with_aux)
-                    accumulator[off:off + n_local] += radiance
-                    if probe is None or off <= probe_index < off + n_local:
-                        probe = probe_c
-                    for k, v in st.items():
-                        stats[k] = stats[k] + v if k in stats else v
-                    aux.append(aux_c)
-                return accumulator, probe, stats, ({
-                    k: torch.cat([a[k] for a in aux]) for k in aux[0]}
-                    if with_aux else None)
+            # equal chunks of at most max_rays_per_pass lanes
+            n_chunks = tiles.chunk_count(n_total, cfg.max_rays_per_pass,
+                                         height)
+            if self.use_wavefront_driver and cfg.compaction and n_chunks > 1:
+                self._driver = WavefrontDriver(
+                    width, height, cfg, intersector, tex_flags,
+                    n_total // n_chunks, self.device)
+                step = self._driver.step
+            else:
+                step = tiles.make_engine_step(
+                    (self.device,) * n_chunks, width, height, cfg,
+                    intersector, tex_flags, replicas=self._replicas)
         self._step, self._step_key = step, key
         return step
 

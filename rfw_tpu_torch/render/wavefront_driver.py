@@ -87,21 +87,28 @@ def _compact_prefix(scene, packed, prev_nc: int, chunk: int):
 
 class WavefrontDriver:
     """The compacted per-sample step for one (width, height, config,
-    intersector) combination."""
+    intersector) combination, over the ``n_pixels`` pixels from
+    ``pixel_offset`` on (the whole frame by default; a tile's row block
+    under ``parallel.tiles``). Ray generation and every random draw see
+    absolute pixel ids; the accumulator, the probe index and the aux
+    planes are the range's own, from 0."""
 
     def __init__(self, width: int, height: int, config: RenderConfig,
-                 intersector: Intersector, tex_flags, chunk: int, device):
-        n = width * height
+                 intersector: Intersector, tex_flags, chunk: int, device,
+                 n_pixels: int | None = None, pixel_offset: int = 0):
+        n = n_pixels if n_pixels is not None else width * height
         if n % chunk:
             raise ValueError(f"chunk {chunk} does not divide {n} lanes")
         self.width, self.height, self.n, self.chunk = width, height, n, chunk
+        self.pixel_offset = pixel_offset
         self.config = config
         self.device = torch.device(device)
         self._intersector = intersector
         self._tex_flags = tex_flags
         tp = _tile_permutation(width, n)
         pid_np = tp[0] if tp is not None else np.arange(n, dtype=np.int32)
-        self._pid = torch.from_numpy(pid_np).to(self.device)
+        self._pid = torch.from_numpy(pid_np + np.int32(pixel_offset)).to(
+            self.device)
         pid_l = self._pid.long()
         self._sx, self._sy = pid_l % width, pid_l // width
         self._inv_np = tp[1] if tp is not None else None
@@ -134,7 +141,7 @@ class WavefrontDriver:
     def step(self, scene, accumulator, view, sample_index: int,
              probe_index: int, depth_times: list | None = None,
              with_aux: bool = True):
-        """One sample for the whole frame. Returns (accumulator, probe,
+        """One sample for the driver's pixels. Returns (accumulator, probe,
         stats, aux) with stats {"ray_count_d", "shadow_count_d"} as
         device scalars and aux depth 0's {"normal" (N, 3), "depth" (N,)}
         in lane order (``aux_inverse``), None unless ``with_aux``. With ``depth_times`` (a list),
@@ -185,7 +192,7 @@ class WavefrontDriver:
 
         pid = packed[:, 17].contiguous().view(torch.int32).long()
         radiance = torch.empty((n, 3), device=self.device)
-        radiance[pid] = packed[:, 13:16]
+        radiance[pid - self.pixel_offset] = packed[:, 13:16]
         aux = ({k: torch.cat([a[k] for a in aux]) for k in aux[0]}
                if with_aux else None)
         return accumulator + radiance, probe, stats, aux

@@ -14,8 +14,8 @@ on the CPU against the goldens and against rfw_tpu.
 * The ``dense`` intersector agrees with ``bvh`` to
   tests/test_integrator.py's bar.
 * ``validate()`` raises on the broken scenes rfw_tpu's raises on; the
-  engine list is rfw_tpu's but ``raster``, and the settings (every
-  intersector, ``tlas`` included, and ``denoise``) are rfw_tpu's.
+  engine list is rfw_tpu's, and the settings (every intersector,
+  ``tlas`` included, and ``denoise``) are rfw_tpu's.
 """
 
 import os
@@ -169,7 +169,7 @@ def test_validate_raises_as_rfw_tpu(how, match):
 
 
 def test_engine_list_and_settings():
-    ported = sorted(set(j_context.available_engines()) - {"raster"})
+    ported = j_context.available_engines()
     assert context.available_engines() == ported
     for name in ported:
         eng = create_engine(name, device="cpu")

@@ -16,7 +16,10 @@ import sys
 import pytest
 import torch
 
+from rfw_tpu_torch.app import App
+from rfw_tpu_torch.parallel import make_tile_mesh
 from rfw_tpu_torch.render import context, engines
+from rfw_tpu_torch.render.template import TemplateEngine
 from rfw_tpu_torch.system import RenderSystem
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -72,15 +75,19 @@ def test_no_source_names_rfw_tpu_or_jax():
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """RenderSystem, create_engine and the engines default to "cuda" and
-    raise RuntimeError without a card; "cpu" must be asked for."""
+    """RenderSystem, create_engine, the engines, App, make_tile_mesh and
+    TemplateEngine default to "cuda" and raise RuntimeError without a
+    card; "cpu" must be asked for."""
     for fn in (RenderSystem.__init__, context.create_engine,
-               engines.PathTracerEngine.__init__):
+               engines.PathTracerEngine.__init__, App.__init__,
+               make_tile_mesh, TemplateEngine.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: RenderSystem("wavefront"),
                  lambda: context.create_engine("wavefront"),
-                 lambda: engines.WavefrontEngine()):
+                 lambda: engines.WavefrontEngine(),
+                 lambda: context.create_engine("raster"), App,
+                 lambda: make_tile_mesh(2), TemplateEngine):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     rs = RenderSystem("wavefront", device="cpu")
