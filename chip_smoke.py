@@ -6,10 +6,14 @@
 Needs one CUDA card; imports no JAX. Phases, one or more lines each:
 
 1. the card: name and power limit as nvidia-smi reports them;
-2. builds the CUDA kernels from csrc/ (one nvcc per source, in
-   parallel), with the build seconds and each kernel's registers, shared
-   memory, stack frame and spills as ptxas reports them (a spill fails
-   the run; the traversal's 64-entry stack is a stack frame);
+2. builds both native libraries ahead of time with ``python -m
+   rfw_tpu_torch.native.build`` (the BVH builder with g++, the CUDA
+   kernels from csrc/ with one nvcc per source, in parallel), printing
+   its commands, paths and build seconds; then cuda_lib.load() must find
+   the library and build nothing (its time is the dlopen), and each
+   kernel's registers, shared memory, stack frame and spills as ptxas
+   reported them are printed (a spill fails the run; the traversal's
+   64-entry stack is a stack frame);
 3. holds each kernel against its plain PyTorch version on the main
    path's own 1080p streams (a primary chunk and a bounce chunk of
    518,400 lanes each): enum must be equal, visit and tvisit (built with
@@ -133,12 +137,23 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    megakernel (Cornell, 20 frames, in a thread): the frame is a PNG of
    that size, a keys POST moves the camera and restarts the
    accumulation, a material POST lands, a probe POST gives a probe, and
-   /stats has rfw_tpu's keys.
+   /stats has rfw_tpu's keys;
+12. the five examples of rfw_tpu_torch/examples/ through their main(argv)
+   at their rfw_tpu counterparts' default sizes: cornell (256², 16 spp),
+   textured_env (256², 32 spp), instances (6 frames of 160², 4 spp, the
+   flattened scene and --tlas), animation (8 frames of 160², 4 spp, the
+   skinned tube) and viewer (256², --duration 3 on a free port, one
+   frame fetched over HTTP): each exits 0, writes its PNGs and launches
+   the kernels of its engine and intersector and no other (traverse on
+   megakernel, enum and visit on the viewer's wavefront), and of each
+   kernel its launch with the most live lanes is held bit for bit to its
+   plain version; then the example's Cornell at 64², 8 spp on
+   megakernel, card against CPU (RMSE < 2e-3).
 
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON (its
-launches from phases 5, 6, 9, 10 and 11, and split by phase in
+launches from phases 5, 6, 9, 10, 11 and 12, and split by phase in
 ``launches_by_phase``; ``ms`` one launch between two events,
 ``device_ms`` the device time), the card's name and power limit, and
 the run's JSON result.
@@ -152,7 +167,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -193,35 +207,6 @@ def _check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 # scenes
 # ---------------------------------------------------------------------------
-
-def _icosphere(level: int):
-    t = (1.0 + 5.0 ** 0.5) / 2.0
-    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
-             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
-             (-t, 0, -1), (-t, 0, 1)]
-    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
-             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
-             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
-             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
-    verts = [np.array(v, np.float64) / np.linalg.norm(v) for v in verts]
-    for _ in range(level):
-        mid: dict = {}
-
-        def midpoint(a, b):
-            key = (min(a, b), max(a, b))
-            if key not in mid:
-                m = verts[a] + verts[b]
-                verts.append(m / np.linalg.norm(m))
-                mid[key] = len(verts) - 1
-            return mid[key]
-
-        new = []
-        for a, b, c in faces:
-            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
-            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
-        faces = new
-    return np.stack(verts).astype(np.float32), np.array(faces, np.int32)
-
 
 def _grid(origin, du, dv, n: int):
     """n x n quads spanning origin + [0,1]du + [0,1]dv, normal du x dv."""
@@ -273,89 +258,6 @@ def _planar_uv(pos, nrm, tile: float = 4.0):
     return (np.take_along_axis(pos, keep, axis=1) / tile).astype(np.float32)
 
 
-TUBE_LENGTH = 1.6
-
-
-def _write_skinned_gltf(path, seed: int, around: int = 256,
-                        rings: int = 128) -> int:
-    """glTF 2.0 of a skinned tube standing on y = 0 (length TUBE_LENGTH,
-    radius ~0.2, ``around`` x ``rings`` quads, radii jittered from
-    ``seed``), its buffers inline as a data URI: two joints (a root and
-    one at half height), JOINTS_0/WEIGHTS_0 blending from the lower to
-    the upper joint around the middle, inverse-bind matrices, and one
-    LINEAR rotation channel on the upper joint that bends the tube by
-    0, 40 and 80 degrees at t = 0, 0.5, 1 about a horizontal axis drawn
-    from ``seed``. Returns the triangle count."""
-    import base64
-    rng = np.random.default_rng(seed)
-    ang = 2.0 * np.pi * np.arange(around) / around
-    y = TUBE_LENGTH * np.arange(rings + 1) / rings
-    rad = 0.2 * (1.0 + 0.04 * rng.uniform(-1.0, 1.0, (rings + 1, around)))
-    ca, sa = np.cos(ang)[None, :], np.sin(ang)[None, :]
-    pos = np.stack([rad * ca, np.broadcast_to(y[:, None], rad.shape),
-                    rad * sa], -1).reshape(-1, 3)
-    nrm = np.broadcast_to(np.stack([ca, 0.0 * ca, sa], -1),
-                          (rings + 1, around, 3)).reshape(-1, 3)
-    uv = np.stack(np.meshgrid(np.arange(around) / around,
-                              np.arange(rings + 1) / rings), -1).reshape(-1, 2)
-    i, j = np.meshgrid(np.arange(rings), np.arange(around), indexing="ij")
-    a = i * around + j
-    b = i * around + (j + 1) % around
-    faces = np.concatenate([np.stack([a, a + around, b], -1).reshape(-1, 3),
-                            np.stack([b, a + around, b + around],
-                                     -1).reshape(-1, 3)])
-    s = np.clip((pos[:, 1] - 0.3 * TUBE_LENGTH) / (0.4 * TUBE_LENGTH), 0, 1)
-    w1 = s * s * (3.0 - 2.0 * s)
-    weights = np.stack([1.0 - w1, w1, 0 * w1, 0 * w1], -1)
-    joints = np.tile(np.array([0, 1, 0, 0], np.uint16), (len(pos), 1))
-    half = 0.5 * TUBE_LENGTH
-    ibm = np.stack([np.eye(4), np.eye(4)])
-    ibm[1, 1, 3] = -half                     # inverse of the joint's bind
-    phi = rng.uniform(0.0, np.pi)
-    axis = np.array([np.cos(phi), 0.0, np.sin(phi)])
-    quats = [np.concatenate([axis * np.sin(th / 2), [np.cos(th / 2)]])
-             for th in np.radians([0.0, 40.0, 80.0])]
-    blobs = [pos.astype("<f4"), nrm.astype("<f4"), uv.astype("<f4"),
-             joints.astype("<u2"), weights.astype("<f4"),
-             faces.astype("<u4"),
-             ibm.transpose(0, 2, 1).astype("<f4"),     # column-major
-             np.array([0.0, 0.5, 1.0], "<f4"), np.array(quats, "<f4")]
-    raw = [b.tobytes() for b in blobs]
-    offs = np.cumsum([0] + [len(r) for r in raw])
-    acc = [(5126, "VEC3", len(pos)), (5126, "VEC3", len(pos)),
-           (5126, "VEC2", len(pos)), (5123, "VEC4", len(pos)),
-           (5126, "VEC4", len(pos)), (5125, "SCALAR", faces.size),
-           (5126, "MAT4", 2), (5126, "SCALAR", 3), (5126, "VEC4", 3)]
-    doc = {
-        "asset": {"version": "2.0"},
-        "buffers": [{"byteLength": int(offs[-1]),
-                     "uri": "data:application/octet-stream;base64,"
-                     + base64.b64encode(b"".join(raw)).decode("ascii")}],
-        "bufferViews": [{"buffer": 0, "byteOffset": int(o),
-                         "byteLength": len(r)} for o, r in zip(offs, raw)],
-        "accessors": [{"bufferView": n, "componentType": c, "type": t,
-                       "count": k} for n, (c, t, k) in enumerate(acc)],
-        "materials": [{"pbrMetallicRoughness": {
-            "baseColorFactor": [0.8, 0.35, 0.25, 1.0],
-            "metallicFactor": 0.0, "roughnessFactor": 0.6}}],
-        "meshes": [{"primitives": [{
-            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2,
-                           "JOINTS_0": 3, "WEIGHTS_0": 4},
-            "indices": 5, "material": 0}]}],
-        "nodes": [{"name": "root", "children": [1]},
-                  {"name": "bend", "translation": [0.0, half, 0.0]},
-                  {"name": "tube", "mesh": 0, "skin": 0}],
-        "skins": [{"joints": [0, 1], "inverseBindMatrices": 6}],
-        "animations": [{"samplers": [{"input": 7, "output": 8,
-                                      "interpolation": "LINEAR"}],
-                        "channels": [{"sampler": 0, "target": {
-                            "node": 1, "path": "rotation"}}]}],
-        "scenes": [{"nodes": [0, 2]}], "scene": 0}
-    with open(path, "w") as f:
-        json.dump(doc, f)
-    return len(faces)
-
-
 N_SPHERE_MATERIALS = 8
 
 
@@ -368,7 +270,8 @@ def build_slice_scene(rs, workdir: str, materials=None) -> int:
     from SEED. ``materials`` = (sphere material ids, room material id)
     gives sphere i material ``i % len(sphere ids)``, one PLY per sphere
     material; without it, one untextured material each."""
-    sv, sf = _icosphere(4)
+    from rfw_tpu_torch.utils.synthetic import icosphere
+    sv, sf = icosphere(4)
     spheres = [sv * r + c for r, c in _sphere_placements()]
     if materials is None:
         materials = _slice_materials_plain(rs)
@@ -438,7 +341,8 @@ def build_instanced_scene(rs, workdir: str):
     (scale r, translation c, as ``_sphere_placements`` draws them), so
     the TLAS holds 3 BLASes (sphere, room, lamp) under 62 instances.
     Returns (triangle count, the spheres' InstanceRefs)."""
-    sv, sf = _icosphere(4)
+    from rfw_tpu_torch.utils.synthetic import icosphere
+    sv, sf = icosphere(4)
     path = os.path.join(workdir, "sphere.ply")
     _write_ply(path, sv, sv, sf, _sphere_uv(sv))
     (sphere_m,), room_m = _slice_materials_plain(rs)
@@ -656,32 +560,6 @@ def _streams(rs):
               torch.where(b.alive, 1e30, 0.0))
     return (eng._scene, {"primary": primary, "bounce": bounce,
                          "shadow": shadow[0]}, int(live))
-
-
-def ptxas_report(log: str) -> dict:
-    """Per kernel, what ``nvcc -Xptxas -v`` printed: registers, static
-    shared memory, stack and spill bytes."""
-    out, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            k = re.search(r"\d+(t?visit_kernel|enum_kernel|expand_kernel"
-                          r"|traverse_kernel)", m.group(1))
-            cur = out.setdefault(k.group(1) if k else m.group(1), {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                       spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            smem = re.search(r"(\d+) bytes smem", line)
-            cur.update(registers=int(m.group(1)),
-                       smem=int(smem.group(1)) if smem else 0)
-    return out
 
 
 def _bound(flop: float, nbytes: float) -> dict:
@@ -1332,10 +1210,11 @@ def _refit_system(work: str, t: float, sphere_xf=None):
     (0) at ``sphere_xf``; not yet synchronised."""
     from rfw_tpu_torch.config import RenderConfig
     from rfw_tpu_torch.system import RenderSystem
+    from rfw_tpu_torch.utils.synthetic import write_skinned_gltf
     rs = RenderSystem("wavefront", RenderConfig(), device="cuda")
     n_tris = build_slice_scene(rs, work)
     path = os.path.join(work, "tube.gltf")
-    n_tris += _write_skinned_gltf(path, SEED)
+    n_tris += write_skinned_gltf(path, SEED)
     rs.add_instance(rs.add_object(path), scale=(3, 3, 3),
                     translation=(0.0, 0.0, -10.0))
     if sphere_xf is not None:
@@ -2409,6 +2288,274 @@ def phase_11():
             err)
 
 
+# the examples at their rfw_tpu counterparts' default sizes: (label,
+# module, arguments besides --out, the kernels its engine and intersector
+# launch, its PNGs' width, height and count: one file, frames under
+# --out, or for the viewer the frame fetched over HTTP)
+EXAMPLES = (
+    ("cornell", "cornell", [], ("traverse",), (256, 256, 1)),
+    ("textured_env", "textured_env", [], ("traverse",), (256, 256, 1)),
+    ("instances", "instances", [], ("traverse",), (160, 160, 6)),
+    ("instances --tlas", "instances", ["--tlas"], ("traverse",),
+     (160, 160, 6)),
+    ("animation", "animation", [], ("traverse",), (160, 160, 8)),
+    ("viewer", "viewer", ["--size", "256", "--duration", "3"],
+     ("enum", "visit"), (256, 256, 1)),
+)
+
+
+def _live(t_hi, n: int, eps: float = 0.0) -> int:
+    """Lanes whose bound exceeds ``eps`` (every lane for no bound)."""
+    import torch
+    if t_hi is None:
+        return n
+    return int((torch.as_tensor(t_hi).broadcast_to((n,)) > eps).sum())
+
+
+def _clone(x):
+    """A copy of the tensors in ``x`` (nested tuples and dicts)."""
+    import torch
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(map(_clone, x))
+    return x
+
+
+class _Held:
+    """While entered, wraps the traverse, enum and visit wrappers so that
+    of each kernel's launches the one with the most live lanes is kept,
+    inputs and output cloned, for the comparison with its plain version
+    after the run."""
+
+    def __enter__(self):
+        from rfw_tpu_torch.ops import traverse
+        from rfw_tpu_torch.ops import visit_intersect as vi
+        self.best = {}
+        self.orig = (traverse.traverse_wide, vi.block_entries, vi.visit)
+        launch_t, launch_e, launch_v = self.orig
+
+        def keep(kernel, live, args, out):
+            if live > self.best.get(kernel, (-1,))[0]:
+                self.best[kernel] = (live, _clone(args), _clone(out))
+
+        def traverse_held(origins, directions, bvh, tris, **kw):
+            out = launch_t(origins, directions, bvh, tris, **kw)
+            keep("traverse", _live(kw.get("t_max"), origins.shape[0],
+                                   kw.get("t_epsilon", 1e-4)),
+                 ((origins, directions, bvh, tris), kw), out)
+            return out
+
+        def enum_held(rays, bounds8, n_real):
+            out = launch_e(rays, bounds8, n_real)
+            keep("enum", _live(rays[3], rays.shape[1]), (rays, bounds8),
+                 out)
+            return out
+
+        def visit_held(rays, ids, counts, tnears, gran, eps, any_hit,
+                       walked=None):
+            out = launch_v(rays, ids, counts, tnears, gran, eps, any_hit,
+                           walked=walked)
+            keep("visit", _live(rays[3], rays.shape[1]),
+                 (rays, ids, counts, tnears, gran.planes, gran.super_g,
+                  gran.k_size, eps, any_hit), out)
+            return out
+
+        traverse.traverse_wide = traverse_held
+        vi.block_entries, vi.visit = enum_held, visit_held
+        return self
+
+    def __exit__(self, *exc):
+        from rfw_tpu_torch.ops import traverse
+        from rfw_tpu_torch.ops import visit_intersect as vi
+        traverse.traverse_wide, vi.block_entries, vi.visit = self.orig
+
+    def against_plain(self, label) -> dict:
+        """Each held launch against its plain version, bit for bit.
+        Returns the largest kernel-plain difference per kernel."""
+        import torch
+        from rfw_tpu_torch.ops import traverse
+        from rfw_tpu_torch.ops import visit_intersect as vi
+        err = {}
+        for kernel, (live, args, out_k) in sorted(self.best.items()):
+            if kernel == "traverse":
+                a, kw = args
+                out_p = traverse.traverse_wide_ref(*a, **kw)
+                lanes = a[0].shape[0]
+                mode = "any hit" if kw.get("any_hit") else "closest"
+            elif kernel == "enum":
+                out_k, out_p = (out_k,), (vi.block_entries_ref(*args),)
+                lanes, mode = args[0].shape[1], f"{args[1].shape[1]} cells"
+            else:
+                out_p = vi.visit_ref(*args)
+                lanes = args[0].shape[1]
+                mode = "any hit" if args[-1] else "closest"
+            torch.cuda.synchronize()
+            _check(_bits_equal(out_k, out_p),
+                   f"{label}: {kernel} kernel != plain on its launch with "
+                   f"the most live lanes")
+            err[kernel] = float((out_k[0] - out_p[0]).abs().max())
+            print(f"phase 12: {label}: {kernel} kernel vs its plain version "
+                  f"on the launch with the most live lanes ({live} of "
+                  f"{lanes}, {mode}): equal bit for bit")
+        return err
+
+
+def _viewer_example(main, argv):
+    """The viewer example in a thread on a free port of 127.0.0.1, one
+    frame fetched over HTTP while it runs; its ``stop`` waits until the
+    frame was fetched (at most 120 s), so the server cannot close first.
+    Returns (main's exit code, the PNG)."""
+    import socket
+    import threading
+    import urllib.request
+    from rfw_tpu_torch.viewer import LiveViewer
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    fetched, stop, result = threading.Event(), LiveViewer.stop, []
+
+    def stop_after_the_fetch(self):
+        fetched.wait(timeout=120)
+        stop(self)
+
+    LiveViewer.stop = stop_after_the_fetch
+    thread = threading.Thread(target=lambda: result.append(
+        main([*argv, "--port", str(port)])))
+    png = b""
+    try:
+        thread.start()
+        for _ in range(4800):
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/frame.png",
+                        timeout=60) as r:
+                    png = r.read()
+            except OSError:
+                png = b""
+            if png:
+                break
+            time.sleep(0.025)
+    finally:
+        fetched.set()
+        thread.join(timeout=300)
+        LiveViewer.stop = stop
+    _check(not thread.is_alive(), "viewer example still running")
+    return (result[0] if result else None), png
+
+
+def phase_examples(work):
+    """Phase 12: the five examples on the card through their ``main``, at
+    their rfw_tpu counterparts' default sizes: each exits 0, writes its
+    PNGs and launches its kernels, and of each kernel its launch with the
+    most live lanes is held bit for bit to its plain version; then the
+    example's Cornell at 64², 8 spp, card against CPU (RMSE < 2e-3).
+    Returns the examples' launches, summed, and the largest kernel-plain
+    difference per kernel."""
+    import importlib
+    from rfw_tpu_torch.ops import cuda_lib
+    from rfw_tpu_torch.render import RenderStatus, create_engine
+    launches = dict.fromkeys(KERNELS, 0)
+    err: dict = {}
+    for label, name, argv, kernels, pngs in EXAMPLES:
+        main = importlib.import_module(f"rfw_tpu_torch.examples.{name}").main
+        out = os.path.join(work, label.replace(" --", "_"))
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        w, h, n = pngs
+        with _Held() as held:
+            if name == "viewer":
+                rc, png = _viewer_example(main, argv)
+                sizes = [_png_size(png)] if png else []
+            else:
+                if n == 1:
+                    rc = main([*argv, "--out", out + ".png"])
+                    files = [out + ".png"]
+                else:
+                    rc = main([*argv, "--out", out])
+                    files = [os.path.join(out, f"frame_{i:05d}.png")
+                             for i in range(n)]
+                sizes = []
+                for f in files:
+                    with open(f, "rb") as fh:
+                        sizes.append(_png_size(fh.read()))
+        want = [(w, h)] * n
+        wall = time.perf_counter() - t0
+        counts = dict(cuda_lib.launch_counts)
+        print(f"phase 12: {label}: exit {rc}, {wall:.1f} s, PNGs {sizes}, "
+              f"launches {counts}")
+        _check(rc == 0, f"{label}: exit code {rc}")
+        _check(sizes == want, f"{label}: PNGs {sizes}, expected {want}")
+        _check(all((counts[k] > 0) == (k in kernels) for k in KERNELS)
+               and set(held.best) == set(kernels),
+               f"{label}: launched {counts}, expected {kernels} only")
+        for k, e in held.against_plain(label).items():
+            err[k] = max(err.get(k, 0.0), e)
+        for k in KERNELS:
+            launches[k] += counts[k]
+    cornell = importlib.import_module("rfw_tpu_torch.examples.cornell")
+    frames = {}
+    for dev in ("cuda", "cpu"):
+        eng = create_engine("megakernel", device=dev)
+        cornell.build_cornell(eng)
+        eng.resize(64, 64)
+        frames[dev] = eng.render_frame(
+            cornell.default_camera(64).get_view().as_pytree(),
+            RenderStatus.RESET, samples=8)
+    rmse = _rmse(frames["cuda"], frames["cpu"])
+    diff = np.abs(frames["cuda"] - frames["cpu"])
+    print(f"phase 12: the example's Cornell at 64x64, 8 spp on megakernel, "
+          f"card vs CPU: RMSE {rmse:.6g} (bar 2e-3), max abs difference "
+          f"{float(diff.max()):.6g}")
+    _check(bool(np.isfinite(frames["cuda"]).all())
+           and float(frames["cuda"].mean()) > 0.01,
+           "the example's Cornell frame is not finite and lit")
+    _check(rmse < 2e-3, f"example Cornell card vs CPU RMSE {rmse} >= 2e-3")
+    return launches, err
+
+
+def phase_build() -> dict:
+    """Phase 2: ``python -m rfw_tpu_torch.native.build`` builds both
+    native libraries ahead of time; then the loaders must find them and
+    build nothing. Returns the ptxas report per kernel."""
+    from rfw_tpu_torch import native
+    from rfw_tpu_torch.ops import cuda_lib
+    t0 = time.perf_counter()
+    build = subprocess.run([sys.executable, "-m",
+                            "rfw_tpu_torch.native.build"], cwd=ROOT,
+                           capture_output=True, text=True, timeout=900)
+    build_s = time.perf_counter() - t0
+    for line in build.stdout.splitlines():
+        print(f"phase 2: {line}")
+    _check(build.returncode == 0,
+           f"python -m rfw_tpu_torch.native.build exited "
+           f"{build.returncode}:\n{build.stdout}{build.stderr}")
+    print(f"phase 2: python -m rfw_tpu_torch.native.build took "
+          f"{build_s:.2f} s")
+    t0 = time.perf_counter()
+    cuda_lib.load()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bvh_lib = native._load()
+    native_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 2: after the build, cuda_lib.load() took {load_ms:.1f} ms "
+          f"(nvcc {cuda_lib.build_seconds:.2f} s, must be 0) and the BVH "
+          f"builder's load {native_ms:.1f} ms")
+    _check(cuda_lib.build_seconds == 0,
+           f"cuda_lib.load() built the kernels again "
+           f"({cuda_lib.build_seconds:.2f} s)")
+    _check(bvh_lib is not None, "the BVH builder's library did not load")
+    # the build printed each kernel's report; a spill fails the run
+    ptxas = cuda_lib.ptxas_report(cuda_lib.build_log)
+    for name in (f"{k}_kernel" for k in KERNELS):
+        p = ptxas.get(name, {})
+        _check(p.get("spill_stores") == 0 and p.get("spill_loads") == 0,
+               f"{name}: ptxas reports spills or no report ({p})")
+    return ptxas
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--png", help="write the tonemapped 1080p frame here")
@@ -2437,19 +2584,7 @@ def main() -> int:
     print(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    cuda_lib.load()
-    print(f"phase 2: kernels built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {cuda_lib.build_seconds:.2f} s)")
-    ptxas = ptxas_report(cuda_lib.build_log)
-    for name in (f"{k}_kernel" for k in KERNELS):
-        p = ptxas.get(name, {})
-        print(f"phase 2: {name}: {p.get('registers')} registers, "
-              f"{p.get('smem')} B static shared memory, {p.get('stack')} B "
-              f"stack, {p.get('spill_stores')}/{p.get('spill_loads')} B "
-              f"spill stores/loads")
-        _check(p.get("spill_stores") == 0 and p.get("spill_loads") == 0,
-               f"{name}: ptxas reports spills or no report ({p})")
+    ptxas = phase_build()
 
     cfg = RenderConfig()
     rs = RenderSystem("wavefront", cfg, device="cuda")
@@ -2506,10 +2641,16 @@ def main() -> int:
     print(f"phase 11: {time.perf_counter() - t0:.1f} s; launches in its "
           f"timed raster frames, tiled wavefront windows and tiled "
           f"megakernel frame: {launches_11}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        launches_12, err_12 = phase_examples(work)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s; launches in the "
+          f"examples' runs: {launches_12}")
     # each kernel's launches in the timed windows of the phases whose
     # path it is: enum and visit phase 5 (visit), expand and tvisit phase
     # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas); all
-    # of them in phase 11 (raster, tiles)
+    # of them in phase 11 (raster, tiles); the examples' in phase 12
     by_phase = {"enum": {"5": launches["enum"]},
                 "visit": {"5": launches["visit"]},
                 "expand": {"6": launches["expand"]},
@@ -2519,9 +2660,10 @@ def main() -> int:
     launches["traverse"] += launches_10["traverse"]
     for name in KERNELS:
         by_phase[name]["11"] = launches_11[name]
-        launches[name] += launches_11[name]
+        by_phase[name]["12"] = launches_12[name]
+        launches[name] += launches_11[name] + launches_12[name]
     report["traverse"]["err"] = max(report["traverse"]["err"], err_10)
-    for name, e in err_11.items():
+    for name, e in (*err_11.items(), *err_12.items()):
         report[name]["err"] = max(report[name]["err"], e)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print("phase 8: launches per deformation frame (1080p, 1 spp): "

@@ -8,7 +8,10 @@ for ``"cpu"``; nothing here sets a global default device. The kernels of
 the visit, tvisit and bvh intersectors are hand-written CUDA
 (``csrc/``); on CPU tensors their plain PyTorch versions run instead.
 ``RenderConfig(n_devices=k)`` splits a frame into k row-block tiles
-(``parallel/``), driven from one process.
+(``parallel/``), driven from one process. ``examples/`` holds the ports
+of the repository's examples (``python -m rfw_tpu_torch.examples.<name>``)
+and ``python -m rfw_tpu_torch.native.build`` compiles the native
+libraries ahead of time.
 
 The host-side modules (``config``, ``camera``, ``refs``, ``utils/``,
 ``scene/``, ``native/``) are the port's own copies of ``rfw_tpu``'s, with

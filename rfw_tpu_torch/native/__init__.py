@@ -39,15 +39,19 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"librfw_bvh_{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> None:
+def _build(path: str, echo=None) -> None:
     """Compile into a temporary name, then rename: concurrent processes
-    never load a half-written library."""
+    never load a half-written library. ``echo``, given, is called with
+    the command line before it runs."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, SOURCE], check=True,
-                       capture_output=True, timeout=120)
+        cmd = ["g++", *GXX_FLAGS, "-o", tmp, SOURCE]
+        if echo is not None:
+            echo(" ".join(cmd))
+        subprocess.run(cmd, check=True, capture_output=True, text=True,
+                       timeout=120)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

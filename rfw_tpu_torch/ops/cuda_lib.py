@@ -16,10 +16,12 @@ plain versions bit for bit. Division stays IEEE (no ``--use_fast_math``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -83,6 +85,20 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+@contextlib.contextmanager
+def launch(device):
+    """The guard of one kernel launch on ``device``: yields the kernel
+    library and ``device``'s current stream, with ``device`` the calling
+    thread's current CUDA device. ``<<<...>>>``, ``cudaFuncSetAttribute``
+    and ``cudaGetLastError`` act on the current device, so without the
+    guard a launch on a tensor of ``cuda:1`` would run on ``cuda:0`` with
+    ``cuda:1``'s stream. Run the ``lib.rfw_*`` call and its ``check``
+    inside it."""
+    lib = load()
+    with torch.cuda.device(device):
+        yield lib, stream(device)
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -106,16 +122,23 @@ def _library_path() -> str:
     return os.path.join(BUILD_DIR, f"rfw_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _build(path: str) -> None:
+def _build(path: str, echo=None) -> None:
+    """Compile into a temporary directory, then rename: concurrent
+    processes never load a half-written library. ``echo``, given, is
+    called with each command line before it runs."""
     global build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f"{i}.o") for i in range(len(SOURCES))]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                                  stdout=subprocess.PIPE,
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(SOURCES, objs)]
+        if echo is not None:
+            for cmd in cmds:
+                echo(" ".join(cmd))
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
-                 for src, obj in zip(SOURCES, objs)]
+                 for cmd in cmds]
         logs, failed = [], []
         try:
             for src, proc in zip(SOURCES, procs):
@@ -134,8 +157,11 @@ def _build(path: str) -> None:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
                                f"{build_log}")
         lib = os.path.join(tmp, "lib.so")
-        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
-                              capture_output=True, text=True, timeout=600)
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
+        if echo is not None:
+            echo(" ".join(cmd))
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
@@ -145,10 +171,11 @@ def _build(path: str) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built from the sources on first use. The
-    build's compiler output (``-Xptxas -v``: registers, shared memory,
-    spills) is in ``build_log``, kept beside a library that was built
-    earlier."""
+    """The kernel library, built from the sources on first use (``python
+    -m rfw_tpu_torch.native.build`` builds it ahead of time, and then
+    ``build_seconds`` stays 0). The build's compiler output (``-Xptxas
+    -v``: registers, shared memory, spills) is in ``build_log``, kept
+    beside a library that was built earlier."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
@@ -183,3 +210,29 @@ def check(err: int, what: str) -> None:
     if err:
         msg = load().rfw_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel, what ``nvcc -Xptxas -v`` printed: registers, static
+    shared memory, stack and spill bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+(t?visit_kernel|enum_kernel|expand_kernel"
+                          r"|traverse_kernel)", m.group(1))
+            cur = out.setdefault(k.group(1) if k else m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)),
+                       smem=int(smem.group(1)) if smem else 0)
+    return out

@@ -40,7 +40,7 @@ import torch
 
 from . import cuda_lib
 from .intersect import BIG_T, intersect_tri, safe_inv_dir
-from .cuda_lib import check_inputs, launch_counts, ptr, stream
+from .cuda_lib import check_inputs, launch_counts, ptr
 
 STACK_DEPTH = 64
 LEAF_SIZE = 4
@@ -239,13 +239,13 @@ def traverse_wide(origins, directions, bvh, tris, leaf_size: int = LEAF_SIZE,
     v = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return t, prim, u, v
-    lib = cuda_lib.load()
-    err = lib.rfw_traverse(ptr(origins), ptr(directions), ptr(tm), n,
-                           ptr(nodes), ptr(table),
-                           int(leaf_size), float(t_epsilon), int(any_hit),
-                           ptr(t), ptr(prim), ptr(u), ptr(v),
-                           stream(dev))
-    cuda_lib.check(err, "traverse kernel")
+    with cuda_lib.launch(dev) as (lib, stream):
+        err = lib.rfw_traverse(ptr(origins), ptr(directions), ptr(tm), n,
+                               ptr(nodes), ptr(table),
+                               int(leaf_size), float(t_epsilon),
+                               int(any_hit), ptr(t), ptr(prim), ptr(u),
+                               ptr(v), stream)
+        cuda_lib.check(err, "traverse kernel")
     launch_counts["traverse"] += 1
     return t, prim, u, v
 

@@ -35,7 +35,7 @@ import torch
 
 from . import cuda_lib
 from .intersect import BIG_T, safe_inv_dir
-from .cuda_lib import check_inputs, launch_counts, ptr, stream
+from .cuda_lib import check_inputs, launch_counts, ptr
 from .visit_intersect import (BLOCK, EXIT_EVERY, M_C, _BIGKEY, _pack_rays,
                               any_hit_driver, closest_hit_driver, quant_gran,
                               quant_scale, scene_diag, slab_crossed,
@@ -152,12 +152,12 @@ def expand_children(ids, rays, bmin32, bmax32, diag, t_p: int):
                          device=rays.device)
     if n == 0:
         return cids, counts, tnears
-    lib = cuda_lib.load()
-    err = lib.rfw_expand(ptr(rays), n, ptr(ids), m_p, t_p, ptr(bmin32),
-                         ptr(bmax32), ptr(scale), ptr(gran), sb,
-                         float(qmax), float(BIG_T), ptr(cids), ptr(counts),
-                         ptr(tnears), stream(rays.device))
-    cuda_lib.check(err, "expansion kernel")
+    with cuda_lib.launch(rays.device) as (lib, stream):
+        err = lib.rfw_expand(ptr(rays), n, ptr(ids), m_p, t_p, ptr(bmin32),
+                             ptr(bmax32), ptr(scale), ptr(gran), sb,
+                             float(qmax), float(BIG_T), ptr(cids),
+                             ptr(counts), ptr(tnears), stream)
+        cuda_lib.check(err, "expansion kernel")
     launch_counts["expand"] += 1
     return cids, counts, tnears
 
@@ -264,14 +264,14 @@ def tvisit(rays, cids, counts, tnears, wg32, wtm32, k_size: int,
     slot_out = torch.empty(n, dtype=torch.int32, device=rays.device)
     if n == 0:
         return t_out, slot_out
-    lib = cuda_lib.load()
-    err = lib.rfw_tvisit(ptr(rays), n, ptr(cids), ptr(counts),
-                         ptr(tnears), cslots, ptr(wtm32), wtm32.shape[0],
-                         k_size, float(t_epsilon), int(any_hit), ptr(t_out),
-                         ptr(slot_out),
-                         None if walked is None else ptr(walked),
-                         stream(rays.device))
-    cuda_lib.check(err, "tvisit kernel")
+    with cuda_lib.launch(rays.device) as (lib, stream):
+        err = lib.rfw_tvisit(ptr(rays), n, ptr(cids), ptr(counts),
+                             ptr(tnears), cslots, ptr(wtm32),
+                             wtm32.shape[0], k_size, float(t_epsilon),
+                             int(any_hit), ptr(t_out), ptr(slot_out),
+                             None if walked is None else ptr(walked),
+                             stream)
+        cuda_lib.check(err, "tvisit kernel")
     launch_counts["tvisit"] += 1
     return t_out, slot_out
 

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_lib
-from .cuda_lib import check_inputs, launch_counts, ptr, stream
+from .cuda_lib import check_inputs, launch_counts, ptr
 from .compaction import ray_sort_keys
 from .intersect import BIG_T, dot3, intersect_tri, safe_inv_dir
 
@@ -115,10 +115,10 @@ def block_entries(rays, bounds8, n_real: int):
                       device=rays.device)
     if n == 0:
         return out
-    lib = cuda_lib.load()
-    err = lib.rfw_enum_entries(ptr(rays), n, ptr(bounds8), t_dim, n_real,
-                               ptr(out), stream(rays.device))
-    cuda_lib.check(err, "enum kernel")
+    with cuda_lib.launch(rays.device) as (lib, stream):
+        err = lib.rfw_enum_entries(ptr(rays), n, ptr(bounds8), t_dim,
+                                   n_real, ptr(out), stream)
+        cuda_lib.check(err, "enum kernel")
     launch_counts["enum"] += 1
     return out
 
@@ -326,13 +326,13 @@ def visit(rays, ids, counts, tnears, gran: Granules, t_epsilon: float,
     slot_out = torch.empty(n, dtype=torch.int32, device=rays.device)
     if n == 0:
         return t_out, slot_out
-    lib = cuda_lib.load()
-    err = lib.rfw_visit(ptr(rays), n, ptr(ids), ptr(counts), ptr(tnears),
-                        m_c, ptr(wtm), wtm.shape[0], g, k, float(t_epsilon),
-                        int(any_hit), ptr(t_out), ptr(slot_out),
-                        None if walked is None else ptr(walked),
-                        stream(rays.device))
-    cuda_lib.check(err, "visit kernel")
+    with cuda_lib.launch(rays.device) as (lib, stream):
+        err = lib.rfw_visit(ptr(rays), n, ptr(ids), ptr(counts),
+                            ptr(tnears), m_c, ptr(wtm), wtm.shape[0], g, k,
+                            float(t_epsilon), int(any_hit), ptr(t_out),
+                            ptr(slot_out),
+                            None if walked is None else ptr(walked), stream)
+        cuda_lib.check(err, "visit kernel")
     launch_counts["visit"] += 1
     return t_out, slot_out
 

@@ -478,7 +478,11 @@ class PathTracerEngine(EngineContext):
                     with_aux=self._denoise and s == samples - 1)
         self._accumulator = acc
         self._sample_count += samples
-        self._pending = (probe, stats, aux, timer, profiled)
+        # the frame keeps its own accumulator and count: a scene update
+        # while it is in flight restarts the accumulation for the next
+        # frame, not this one
+        self._pending = (probe, stats, aux, timer, profiled, acc,
+                         self._sample_count)
 
     def finish_frame(self) -> np.ndarray:
         """Wait for the dispatched frame, fill stats, return resolved HDR
@@ -486,7 +490,7 @@ class PathTracerEngine(EngineContext):
         last sample's primary-hit normal and depth planes guide it)."""
         if self._pending is None:
             raise RuntimeError("finish_frame without a frame in flight")
-        probe, stats, aux, timer, profiled = self._pending
+        probe, stats, aux, timer, profiled, acc, count = self._pending
         self._pending = None
         _sync(self.device)
         elapsed = timer.elapsed()
@@ -515,7 +519,7 @@ class PathTracerEngine(EngineContext):
         p = flat[len(keys):]
         self._probe_result = (int(p[0]), int(p[1]), float(p[2]))
         width, height = self._size
-        frame = resolve_accumulator(self._accumulator, self._sample_count)
+        frame = resolve_accumulator(acc, count)
         frame = frame.reshape(height, width, 3)
         if self._denoise and aux is not None:
             if self._driver is not None:

@@ -146,7 +146,7 @@ def main(argv) -> int:
     for which, sources in (("built", built), ("variant", variant_sources(
             consts, os.path.join(cuda_lib.BUILD_DIR, "variant_src")))):
         libs[which], log = _load(sources)
-        ptxas[which] = chip_smoke.ptxas_report(log).get(f"{kernel}_kernel")
+        ptxas[which] = cuda_lib.ptxas_report(log).get(f"{kernel}_kernel")
         print(f"{which}: {kernel}_kernel ptxas {ptxas[which]}")
 
     cuda_lib._lib = libs["built"]

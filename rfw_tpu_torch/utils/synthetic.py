@@ -1,9 +1,13 @@
-"""Seeded synthetic geometry for checks of the traversal, numpy only: a
-soup of small random triangles, and a wide BVH deep enough to overflow
-the traversal's 64-entry stack. ``chip_smoke.py`` and the tests build
-their edge cases from these."""
+"""Synthetic geometry, numpy only and deterministic (seeded where it is
+random): a soup of small random triangles and a wide BVH deep enough to
+overflow the traversal's 64-entry stack, for checks of the traversal;
+the icosphere and the skinned glTF tube that ``chip_smoke.py``'s scenes
+and the examples' stand-ins for absent assets are built from."""
 
 from __future__ import annotations
+
+import base64
+import json
 
 import numpy as np
 
@@ -51,3 +55,116 @@ def comb_bvh(levels: int = 40, seed: int = 5):
     wb = {"bmin": lo, "bmax": hi, "child": child, "count": count}
     tris = (verts[:, 0], verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
     return wb, tris
+
+
+def icosphere(level: int):
+    """The unit icosphere of ``level`` subdivisions of the icosahedron
+    (float32 vertices (V, 3), int32 faces (F, 3)): 20 * 4**level faces."""
+    t = (1.0 + 5.0 ** 0.5) / 2.0
+    verts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+             (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+             (-t, 0, -1), (-t, 0, 1)]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = [np.array(v, np.float64) / np.linalg.norm(v) for v in verts]
+    for _ in range(level):
+        mid: dict = {}
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        new = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new
+    return np.stack(verts).astype(np.float32), np.array(faces, np.int32)
+
+
+TUBE_LENGTH = 1.6
+
+
+def write_skinned_gltf(path, seed: int, around: int = 256,
+                       rings: int = 128) -> int:
+    """glTF 2.0 of a skinned tube standing on y = 0 (length TUBE_LENGTH,
+    radius ~0.2, ``around`` x ``rings`` quads, radii jittered from
+    ``seed``), its buffers inline as a data URI: two joints (a root and
+    one at half height), JOINTS_0/WEIGHTS_0 blending from the lower to
+    the upper joint around the middle, inverse-bind matrices, and one
+    LINEAR rotation channel on the upper joint that bends the tube by
+    0, 40 and 80 degrees at t = 0, 0.5, 1 about a horizontal axis drawn
+    from ``seed``. Returns the triangle count."""
+    rng = np.random.default_rng(seed)
+    ang = 2.0 * np.pi * np.arange(around) / around
+    y = TUBE_LENGTH * np.arange(rings + 1) / rings
+    rad = 0.2 * (1.0 + 0.04 * rng.uniform(-1.0, 1.0, (rings + 1, around)))
+    ca, sa = np.cos(ang)[None, :], np.sin(ang)[None, :]
+    pos = np.stack([rad * ca, np.broadcast_to(y[:, None], rad.shape),
+                    rad * sa], -1).reshape(-1, 3)
+    nrm = np.broadcast_to(np.stack([ca, 0.0 * ca, sa], -1),
+                          (rings + 1, around, 3)).reshape(-1, 3)
+    uv = np.stack(np.meshgrid(np.arange(around) / around,
+                              np.arange(rings + 1) / rings), -1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(rings), np.arange(around), indexing="ij")
+    a = i * around + j
+    b = i * around + (j + 1) % around
+    faces = np.concatenate([np.stack([a, a + around, b], -1).reshape(-1, 3),
+                            np.stack([b, a + around, b + around],
+                                     -1).reshape(-1, 3)])
+    s = np.clip((pos[:, 1] - 0.3 * TUBE_LENGTH) / (0.4 * TUBE_LENGTH), 0, 1)
+    w1 = s * s * (3.0 - 2.0 * s)
+    weights = np.stack([1.0 - w1, w1, 0 * w1, 0 * w1], -1)
+    joints = np.tile(np.array([0, 1, 0, 0], np.uint16), (len(pos), 1))
+    half = 0.5 * TUBE_LENGTH
+    ibm = np.stack([np.eye(4), np.eye(4)])
+    ibm[1, 1, 3] = -half                     # inverse of the joint's bind
+    phi = rng.uniform(0.0, np.pi)
+    axis = np.array([np.cos(phi), 0.0, np.sin(phi)])
+    quats = [np.concatenate([axis * np.sin(th / 2), [np.cos(th / 2)]])
+             for th in np.radians([0.0, 40.0, 80.0])]
+    blobs = [pos.astype("<f4"), nrm.astype("<f4"), uv.astype("<f4"),
+             joints.astype("<u2"), weights.astype("<f4"),
+             faces.astype("<u4"),
+             ibm.transpose(0, 2, 1).astype("<f4"),     # column-major
+             np.array([0.0, 0.5, 1.0], "<f4"), np.array(quats, "<f4")]
+    raw = [b.tobytes() for b in blobs]
+    offs = np.cumsum([0] + [len(r) for r in raw])
+    acc = [(5126, "VEC3", len(pos)), (5126, "VEC3", len(pos)),
+           (5126, "VEC2", len(pos)), (5123, "VEC4", len(pos)),
+           (5126, "VEC4", len(pos)), (5125, "SCALAR", faces.size),
+           (5126, "MAT4", 2), (5126, "SCALAR", 3), (5126, "VEC4", 3)]
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"byteLength": int(offs[-1]),
+                     "uri": "data:application/octet-stream;base64,"
+                     + base64.b64encode(b"".join(raw)).decode("ascii")}],
+        "bufferViews": [{"buffer": 0, "byteOffset": int(o),
+                         "byteLength": len(r)} for o, r in zip(offs, raw)],
+        "accessors": [{"bufferView": n, "componentType": c, "type": t,
+                       "count": k} for n, (c, t, k) in enumerate(acc)],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": [0.8, 0.35, 0.25, 1.0],
+            "metallicFactor": 0.0, "roughnessFactor": 0.6}}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2,
+                           "JOINTS_0": 3, "WEIGHTS_0": 4},
+            "indices": 5, "material": 0}]}],
+        "nodes": [{"name": "root", "children": [1]},
+                  {"name": "bend", "translation": [0.0, half, 0.0]},
+                  {"name": "tube", "mesh": 0, "skin": 0}],
+        "skins": [{"joints": [0, 1], "inverseBindMatrices": 6}],
+        "animations": [{"samplers": [{"input": 7, "output": 8,
+                                      "interpolation": "LINEAR"}],
+                        "channels": [{"sampler": 0, "target": {
+                            "node": 1, "path": "rotation"}}]}],
+        "scenes": [{"nodes": [0, 2]}], "scene": 0}
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return len(faces)

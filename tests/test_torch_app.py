@@ -38,9 +38,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _orbit_app(pkg, tmp_path, tag, fail_at=None):
+def _orbit_app(pkg, tmp_path, tag, fail_at=None, move=False):
     """tests/test_async.py's Orbit app in ``pkg``; its ``update`` raises
-    ValueError on call ``fail_at``."""
+    ValueError on call ``fail_at``, and with ``move`` also lifts the lamp
+    (a scene update: ``update_instance`` and ``synchronize``, as
+    examples/instances.py does)."""
     base = importlib.import_module(f"{pkg}.app").App
     config = importlib.import_module(f"{pkg}.config").RenderConfig
     kw = {"device": "cpu"} if pkg == "rfw_tpu_torch" else {}
@@ -72,6 +74,11 @@ def _orbit_app(pkg, tmp_path, tag, fail_at=None):
             rs.camera.look_at([5 * np.sin(ang), 2.0, -5 * np.cos(ang)],
                               [0, 0.5, 0])
             rs.camera.brightness = 0.05 * self.ticks
+            if move:
+                m = np.eye(4, dtype=np.float32)
+                m[1, 3] = 0.2 * self.ticks
+                rs.update_instance(1, m)
+                rs.synchronize()
             return True
 
         def post_render(self, frame, frame_index):
@@ -94,6 +101,30 @@ def test_app_pipeline_matches_sequential(tmp_path):
     ref.run(frames=3, samples_per_frame=2, pipeline=True)
     for a, b in zip(pipe.frames, ref.frames):
         assert float(np.sqrt(((a - b) ** 2).mean())) < 2e-3
+
+
+def test_app_scene_update_keeps_the_frame_in_flight(tmp_path):
+    """An ``update`` that changes the scene while a frame is in flight
+    restarts the accumulation for the next frame; the frame in flight
+    keeps its own accumulator and sample count, so the pipelined frames
+    equal the sequential ones bit for bit. The reference resets the
+    in-flight frame's count, and its pipelined frames come out
+    ``samples`` times too bright (its sequential frames are right)."""
+    seq = _orbit_app("rfw_tpu_torch", tmp_path, "mseq", move=True)
+    seq.run(frames=3, samples_per_frame=2, pipeline=False)
+    pipe = _orbit_app("rfw_tpu_torch", tmp_path, "mpipe", move=True)
+    pipe.run(frames=3, samples_per_frame=2, pipeline=True)
+    assert len(seq.frames) == len(pipe.frames) == 3
+    for a, b in zip(seq.frames, pipe.frames):
+        assert np.array_equal(a, b)
+    ref = {}
+    for pipeline in (False, True):
+        app = _orbit_app("rfw_tpu", tmp_path, f"mref{pipeline}", move=True)
+        app.run(frames=3, samples_per_frame=2, pipeline=pipeline)
+        ref[pipeline] = app.frames
+    for a, b, c in zip(pipe.frames, ref[False], ref[True]):
+        assert float(np.sqrt(((a - b) ** 2).mean())) < 2e-3
+        assert float(c.mean()) > float(b.mean()) + 0.02
 
 
 def _failing_retirement(rs, on_call):

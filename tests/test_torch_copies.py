@@ -31,6 +31,7 @@ import rfw_tpu_torch.scene as scene
 from rfw_tpu_torch import camera, config, native
 from rfw_tpu_torch.bvh import builder
 from rfw_tpu_torch.scene import lights, skybox, texture
+from rfw_tpu_torch.utils import synthetic
 
 
 def test_render_config_defaults_equal():
@@ -361,11 +362,12 @@ def test_skinning_equal():
 
 
 def test_skinned_gltf_equal(tmp_path):
-    """The skinned glTF that config 4 runs on (``chip_smoke.
-    _write_skinned_gltf``): skins, inverse-bind matrices, JOINTS_0 and
-    WEIGHTS_0, the animation, and the posed triangles at t = 0.5."""
+    """The skinned glTF that config 4 runs on (``rfw_tpu_torch.utils.
+    synthetic.write_skinned_gltf``): skins, inverse-bind matrices,
+    JOINTS_0 and WEIGHTS_0, the animation, and the posed triangles at
+    t = 0.5."""
     path = str(tmp_path / "tube.gltf")
-    n = chip_smoke._write_skinned_gltf(path, 3, around=24, rings=10)
+    n = synthetic.write_skinned_gltf(path, 3, around=24, rings=10)
     objs = [pkg.load_object(path, pkg.MaterialList())
             for pkg in (j_scene, scene)]
     ref, port = objs
@@ -373,7 +375,7 @@ def test_skinned_gltf_equal(tmp_path):
     assert port.skins[0].joint_nodes == ref.skins[0].joint_nodes == [0, 1]
     assert np.array_equal(port.skins[0].inverse_bind,
                           ref.skins[0].inverse_bind)
-    assert port.skins[0].inverse_bind[1, 1, 3] == -0.5 * chip_smoke.TUBE_LENGTH
+    assert port.skins[0].inverse_bind[1, 1, 3] == -0.5 * synthetic.TUBE_LENGTH
     m_ref, m_port = ref.meshes[0], port.meshes[0]
     assert m_port.skin_id == m_ref.skin_id == 0
     for attr in ("joints", "weights", "base_positions", "base_normals",

@@ -1,0 +1,146 @@
+"""Every kernel launch of the port runs with its input tensor's device as
+the current CUDA device (``cuda_lib.launch``), on the CPU.
+
+A ``<<<...>>>`` launch, ``cudaFuncSetAttribute`` and ``cudaGetLastError``
+act on the calling thread's current device, while the wrappers pass the
+stream of the tensor's device: without the guard, a launch on a tensor
+of ``cuda:1`` would run on ``cuda:0`` with ``cuda:1``'s stream. Here
+``cuda_lib.kernel_device`` is patched to take the kernel route for CPU
+tensors, ``cuda_lib.load`` returns a fake library whose ``rfw_*``
+entries record the current device, and ``torch.cuda.device`` and
+``cuda_lib.stream`` are recorders: no CUDA is needed."""
+
+import contextlib
+import ctypes
+
+import pytest
+import torch
+
+from rfw_tpu_torch.ops import cuda_lib, traverse
+from rfw_tpu_torch.ops import tvisit_intersect as tv
+from rfw_tpu_torch.ops import visit_intersect as vi
+
+
+class Recorder:
+    """Stands in for ``torch.cuda.device`` and ``cuda_lib.stream``, and
+    is the fake kernel library: it keeps the stack of entered devices and
+    a log of what happened under which stack."""
+
+    def __init__(self, err: int = 0):
+        self.err = err
+        self.stack = []
+        self.log = []
+
+    @contextlib.contextmanager
+    def device(self, dev):
+        self.stack.append(torch.device(dev))
+        self.log.append(("enter", torch.device(dev)))
+        try:
+            yield
+        finally:
+            self.stack.pop()
+            self.log.append(("exit", torch.device(dev)))
+
+    def stream(self, dev):
+        self.log.append(("stream", torch.device(dev), tuple(self.stack)))
+        return ctypes.c_void_p(0)
+
+    def rfw_error_string(self, err):
+        return b"fake error"
+
+    def __getattr__(self, name):
+        if not name.startswith("rfw_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.log.append((name, tuple(self.stack)))
+            return self.err
+        return entry
+
+
+def _rays(n):
+    return torch.rand((8, n), generator=torch.Generator().manual_seed(n))
+
+
+def _enum():
+    rays = _rays(vi.BLOCK)
+    return "rfw_enum_entries", rays, lambda: vi.block_entries(
+        rays, torch.zeros((8, 4)), 4)
+
+
+def _visit():
+    rays = _rays(vi.BLOCK)
+    gran = vi.Granules(planes=torch.zeros((2, 16, 4)),
+                       planes_tm=torch.zeros((2, 4, 12)),
+                       bounds8=torch.zeros((8, 2)), n_real=2, super_g=1,
+                       k_size=4)
+    ids = torch.zeros((1, 3), dtype=torch.int32)
+    return "rfw_visit", rays, lambda: vi.visit(
+        rays, ids, torch.ones(1, dtype=torch.int32), torch.zeros((1, 3)),
+        gran, 1e-4, False)
+
+
+def _expand():
+    rays = _rays(vi.BLOCK)
+    ids = torch.zeros((1, 2), dtype=torch.int32)
+    return "rfw_expand", rays, lambda: tv.expand_children(
+        ids, rays, torch.zeros((8, 3)), torch.ones((8, 3)),
+        torch.tensor(2.0), 2)
+
+
+def _tvisit():
+    ns = 2
+    rays = _rays(ns * tv.LANES)
+    cids = torch.zeros((ns, 3), dtype=torch.int32)
+    return "rfw_tvisit", rays, lambda: tv.tvisit(
+        rays, cids, torch.ones(ns, dtype=torch.int32), torch.zeros((ns, 3)),
+        torch.zeros((2, 16, 8)), torch.zeros((2, 8, 12)), 8, 1e-4, True)
+
+
+def _traverse():
+    origins = torch.zeros((5, 3))
+    bvh = {"nodes": torch.zeros((1, 8, 4))}
+    return "rfw_traverse", origins, lambda: traverse.traverse_wide(
+        origins, torch.ones((5, 3)), bvh, torch.zeros((1, 3, 4)))
+
+
+WRAPPERS = {"enum": _enum, "visit": _visit, "expand": _expand,
+            "tvisit": _tvisit, "traverse": _traverse}
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    rec = Recorder()
+    monkeypatch.setattr(cuda_lib, "kernel_device", lambda t, family: True)
+    monkeypatch.setattr(cuda_lib, "load", lambda: rec)
+    monkeypatch.setattr(cuda_lib, "stream", rec.stream)
+    monkeypatch.setattr(torch.cuda, "device", rec.device)
+    counts = dict(cuda_lib.launch_counts)
+    yield rec
+    cuda_lib.launch_counts.update(counts)
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_launch_runs_under_the_tensors_device(recorder, kernel):
+    entry, t, call = WRAPPERS[kernel]()
+    before = cuda_lib.launch_counts[kernel]
+    call()
+    dev = t.device
+    assert recorder.log == [("enter", dev), ("stream", dev, (dev,)),
+                            (entry, (dev,)), ("exit", dev)]
+    assert recorder.stack == []
+    assert cuda_lib.launch_counts[kernel] == before + 1
+
+
+@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+def test_guard_exits_after_a_failed_launch(recorder, kernel):
+    recorder.err = 2
+    entry, t, call = WRAPPERS[kernel]()
+    before = cuda_lib.launch_counts[kernel]
+    with pytest.raises(RuntimeError, match="CUDA error 2 \\(fake error\\)"):
+        call()
+    dev = t.device
+    assert recorder.log == [("enter", dev), ("stream", dev, (dev,)),
+                            (entry, (dev,)), ("exit", dev)]
+    assert recorder.stack == []
+    assert cuda_lib.launch_counts[kernel] == before

@@ -54,6 +54,7 @@ from rfw_tpu_torch.scene import HostMaterial, MaterialList, Skybox, make_quad
 from rfw_tpu_torch.scene.lights import PointLight, pack_lights
 from rfw_tpu_torch.scene.mesh import build_triangles
 from rfw_tpu_torch.system import RenderSystem
+from rfw_tpu_torch.utils.synthetic import write_skinned_gltf
 
 
 @pytest.fixture(autouse=True)
@@ -668,8 +669,8 @@ def test_config4_refit_frame_matches_reference(tmp_path, monkeypatch):
     from rfw_tpu.scene import Skybox as JSkybox
     from rfw_tpu.system import RenderSystem as JRenderSystem
     path = str(tmp_path / "tube.gltf")
-    assert chip_smoke._write_skinned_gltf(path, chip_smoke.SEED, around=16,
-                                          rings=12) == 384
+    assert write_skinned_gltf(path, chip_smoke.SEED, around=16,
+                              rings=12) == 384
 
     def port(build_at, pose=None):
         return _config4(RenderSystem("wavefront", RenderConfig(
