@@ -12,8 +12,8 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    its commands, paths and build seconds; then cuda_lib.load() must find
    the library and build nothing (its time is the dlopen), and each
    kernel's registers, shared memory, stack frame and spills as ptxas
-   reported them are printed (a spill fails the run; the traversal's
-   64-entry stack is a stack frame);
+   reported them are printed (a spill fails the run; the 64-entry stack
+   of the traversal and of the tlas walk is a stack frame);
 3. holds each kernel against its plain PyTorch version on the main
    path's own 1080p streams (a primary chunk and a bounce chunk of
    518,400 lanes each): enum must be equal, visit and tvisit (built with
@@ -47,7 +47,8 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    lanes (t_max > eps) and by the bytes each lane needs (a live lane's
    ray in, a dead lane's t_max in, every lane's hit out), with the
    longest walk and the share of the visits a walk of every lane spent
-   on the dead ones;
+   on the dead ones. The two tlas kernels are held, timed and bounded
+   the same way in phase 10, on the instanced slice's streams;
 4. renders the config-2 Cornell scene and the config-3 scene
    (microfacet BSDF, a checker-textured floor through the merged
    material atlas, envmap importance sampling; 64², 8 spp, compacted
@@ -101,17 +102,26 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    BLASes under 62 instances) on one RenderSystem("wavefront"), 4 spp
    through bvh, then the switch to tlas (a full build with the BLASes,
    timed) and 4 spp, within RMSE 2e-3 of the bvh frame; on the chunk-0
-   streams the tlas intersector's traverse launches (one a BLAS and
-   stream, with culled lanes) bit for bit against traverse_wide_ref,
-   and its hits against the bvh intersector's (at most 2e-5 of a
-   stream's lanes apart); the tlas slice timed as phase 5 (traverse must launch, no visit-list kernel), its
-   per-depth split, the traverse launches a sample and the touched
-   instances per intersector call; a 1-spp frame raw and denoised
-   against the slice's converged frame (the denoised one must be
-   closer; the denoise timed between CUDA events), FXAA (finite, in [0,
-   1], timed); then 8 moves of one sphere, each update timed, none a
-   full build, and the moved frame within RMSE 2e-3 of a fresh tlas
-   build;
+   streams (primary and bounce closest hit, shadow any hit) the tlas
+   intersector's two kernels held bit for bit on every BLAS group,
+   tlas_premask_kernel against premask_ref (cross, tn_min) and
+   tlas_walk_kernel against walk_group_ref (t, orig, u, v), the spheres'
+   BLAS with culled and live lanes in the bounce and the shadow stream,
+   each kernel's ptxas line, and the bounce chunk's launches timed (one
+   launch, device) beside their plain versions and bounds; one closest
+   and one occluded call under torch.cuda.set_sync_debug_mode("error")
+   (no host read); its hits against the bvh intersector's (at most 2e-5
+   of a stream's lanes apart, relative t < 1e-4); the tlas slice timed
+   as phase 5 (the two tlas kernels must launch, traverse and the
+   visit-list kernels not), its per-depth split, the tlas launches a
+   sample and, from one more sample, the touched instances per
+   intersector call (its walk launches' counts, read after the frame;
+   one premask and one walk launch a BLAS group and call); a 1-spp frame
+   raw and denoised against the slice's converged frame (the denoised
+   one must be closer; the denoise timed between CUDA events), FXAA
+   (finite, in [0, 1], timed); then 8 moves of one sphere, each update
+   timed, none a full build, and the moved frame within RMSE 2e-3 of a
+   fresh tlas build;
 11. the raster preview, tiles, the App and the live viewer: (a)
    RenderSystem("raster") on phase 5's scene and camera, median of 5
    synced 1080p frames and their peak memory (traverse must launch,
@@ -145,18 +155,19 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    skinned tube) and viewer (256², --duration 3 on a free port, one
    frame fetched over HTTP): each exits 0, writes its PNGs and launches
    the kernels of its engine and intersector and no other (traverse on
-   megakernel, enum and visit on the viewer's wavefront), and of each
+   megakernel, the two tlas kernels under --tlas, enum and visit on the
+   viewer's wavefront), and of each
    kernel its launch with the most live lanes is held bit for bit to its
    plain version; then the example's Cornell at 64², 8 spp on
    megakernel, card against CPU (RMSE < 2e-3).
 
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
-phase 8's launches per deformation frame, the kernel table as JSON (its
-launches from phases 5, 6, 9, 10, 11 and 12, and split by phase in
-``launches_by_phase``; ``ms`` one launch between two events,
-``device_ms`` the device time), the card's name and power limit, and
-the run's JSON result.
+phase 8's launches per deformation frame, the kernel table as JSON
+(seven kernels; its launches from phases 5, 6, 9, 10, 11 and 12, and
+split by phase in ``launches_by_phase``; ``ms`` one launch between two
+events, ``device_ms`` the device time), the card's name and power
+limit, and the run's JSON result.
 
 To compare two trees on one card, run this script from an unpacked
 ``git archive`` of each, one after the other, in one chip command.
@@ -179,13 +190,18 @@ SOURCES = {"enum": "rfw_tpu_torch/csrc/visit_kernels.cu",
            "visit": "rfw_tpu_torch/csrc/visit_kernels.cu",
            "expand": "rfw_tpu_torch/csrc/expand_kernel.cu",
            "tvisit": "rfw_tpu_torch/csrc/tvisit_kernel.cu",
-           "traverse": "rfw_tpu_torch/csrc/traverse_kernel.cu"}
-# expand and traverse replace XLA steps, not Pallas kernels
+           "traverse": "rfw_tpu_torch/csrc/traverse_kernel.cu",
+           "tlas_premask": "rfw_tpu_torch/csrc/tlas_kernel.cu",
+           "tlas_walk": "rfw_tpu_torch/csrc/tlas_kernel.cu"}
+# expand, traverse and the two tlas kernels replace XLA steps, not Pallas
+# kernels
 REPLACES = {"enum": "rfw_tpu/ops/visit_intersect.py:94",
             "visit": "rfw_tpu/ops/visit_intersect.py:303",
             "expand": "rfw_tpu/ops/tvisit_intersect.py:89",
             "tvisit": "rfw_tpu/ops/tvisit_intersect.py:186",
-            "traverse": "rfw_tpu/ops/traverse.py:58"}
+            "traverse": "rfw_tpu/ops/traverse.py:58",
+            "tlas_premask": "rfw_tpu/render/intersectors.py:201",
+            "tlas_walk": "rfw_tpu/render/intersectors.py:201"}
 KERNELS = tuple(SOURCES)
 SEED = 20261016
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense)
@@ -196,6 +212,7 @@ FLOP_PER_TEST = 39         # one Woop (ray, triangle) test
 FLOP_PER_SLAB = 28         # one (ray, cell) slab test
 FLOP_PER_BOX = 25          # one (ray, child box) test of the traversal
 FLOP_PER_MT = 53           # one Möller–Trumbore (ray, triangle) test
+FLOP_PER_XFORM = 33        # one ray into object space (18 + 15)
 TRAVERSE_THREADS = 128     # traverse_kernel.cu's block, kTraverseThreads
 
 
@@ -1524,6 +1541,7 @@ def phase_megakernel(frame_visit, png, profile):
 
 TLAS_MOVES = 8
 VISIT_LIST = ("enum", "visit", "expand", "tvisit")
+TLAS_KERNELS = ("tlas_premask", "tlas_walk")
 
 
 def _tlas_system(work, moves=0):
@@ -1549,75 +1567,254 @@ def _tlas_move(spheres, i: int) -> None:
 TLAS_APART = 2e-5
 
 
-def _tlas_against_bvh(rs) -> float:
+def _premask_equal(a, b) -> bool:
+    """Two premask results (cross, tn_min) equal, tn_min bit for bit."""
+    import torch
+    return (torch.equal(a[0], b[0])
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+
+
+class _TlasLaunches:
+    """While entered, wraps bvh.tlas's two kernel wrappers (``premask``
+    and ``walk_group``, which ``walk`` calls BLAS by BLAS) and keeps each
+    launch's inputs and output, keyed by (``label``, BLAS group), for the
+    comparison with the plain versions after the run. Nothing is read to
+    the host while entered."""
+
+    def __init__(self):
+        self.label = None
+        self.premask, self.walk = {}, {}
+
+    def __enter__(self):
+        from rfw_tpu_torch.bvh import tlas
+        self.orig = (tlas.premask, tlas.walk_group)
+        launch_p, launch_w = self.orig
+        self.groups = {}
+
+        def premask_held(lo, hi, o, d, best_t, ray_chunk=65536):
+            out = launch_p(lo, hi, o, d, best_t, ray_chunk)
+            g = self.groups.setdefault(id(lo), len(self.groups))
+            self.premask[(self.label, g)] = ((lo, hi, o, d, best_t), out)
+            return out
+
+        def walk_held(rows, o, d, state, order, count, t_epsilon,
+                      any_hit=False):
+            out = launch_w(rows, o, d, state, order, count, t_epsilon,
+                           any_hit)
+            g = self.groups[id(rows["inst_bmin"])]
+            self.walk[(self.label, g)] = (
+                (rows, o, d, state, order, count, t_epsilon, any_hit), out)
+            return out
+
+        tlas.premask, tlas.walk_group = premask_held, walk_held
+        return self
+
+    def __exit__(self, *exc):
+        from rfw_tpu_torch.bvh import tlas
+        tlas.premask, tlas.walk_group = self.orig
+
+
+def _tlas_walk_bound(args, out, stats) -> dict:
+    """tlas_walk_kernel's bound on one launch, from the work its plain
+    version counted: FLOP of the box tests of the touched instances, the
+    transforms into object space and the walks' box and triangle tests;
+    bytes of every ray in (origin, direction, state: 40 B) and out (16
+    B), the group's rows (boxes, matrix, base: 92 B an instance, and its
+    order entry), the distinct nodes (128 B) and triangles (36 B) the
+    walks read and the prim_order entry of each distinct hit."""
+    import torch
+    rows, o, _, state, _, _, _, _ = args
+    n, k = o.shape[0], rows["inst_base"].shape[0]
+    changed = out[1] != state[1]
+    hits = int(torch.unique(out[1][changed]).numel())
+    flop = (stats["box_tests"] * float(FLOP_PER_BOX)
+            + stats["walks"] * float(FLOP_PER_XFORM)
+            + stats.get("visits", 0) * 4.0 * FLOP_PER_BOX
+            + stats.get("tests", 0) * float(FLOP_PER_MT))
+    nodes = int(stats["node_seen"].sum()) if "node_seen" in stats else 0
+    tris = int(stats["tri_seen"].sum()) if "tri_seen" in stats else 0
+    nbytes = (56.0 * n + 96.0 * k + 4.0 + 128.0 * nodes + 36.0 * tris
+              + 4.0 * hits)
+    return {**_bound(flop, nbytes), "nodes": nodes, "tris": tris}
+
+
+def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
+    """Each held premask and walk launch against its plain version,
+    bit for bit (cross and tn_min; t, orig, u and v), with the walk's
+    lanes that walked (live) and those every box culled; the launches of
+    the ``timed`` stream timed (one launch, device) beside their plain
+    version and bound. Returns the report of each kernel on the timed
+    stream's spheres group."""
+    import torch
+    from rfw_tpu_torch.bvh import tlas
+    from rfw_tpu_torch.ops import cuda_lib
+    ptxas = cuda_lib.ptxas_report(cuda_lib.build_log)
+    for k in TLAS_KERNELS:
+        p = ptxas.get(f"{k}_kernel", {})
+        print(f"phase 10: {k}_kernel ptxas: {p.get('registers')} registers, "
+              f"{p.get('smem')} B shared memory, {p.get('stack')} B stack "
+              f"frame, {p.get('spill_stores')}/{p.get('spill_loads')} B "
+              f"spill stores/loads")
+    report = {"tlas_premask": {"err": 0.0}, "tlas_walk": {"err": 0.0}}
+    culled_live = set()
+    for (name, g), (args, out_k) in sorted(held.premask.items()):
+        lo, hi, o, d, best_t = args
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out_p = tlas.premask_ref(lo, hi, o, tlas.safe_inv_box_dir(d), best_t)
+        b.record()
+        torch.cuda.synchronize()
+        _check(_premask_equal(out_k, out_p),
+               f"tlas premask kernel != premask_ref on the {name} launch of "
+               f"BLAS {g}")
+        report["tlas_premask"]["err"] = max(
+            report["tlas_premask"]["err"],
+            float((out_k[1] - out_p[1]).abs().max()))
+        n, k = o.shape[0], lo.shape[0]
+        line = (f"phase 10: tlas_premask vs premask_ref on the {name} launch "
+                f"of BLAS {g} ({k} instances, {n} lanes): "
+                f"{int(out_k[0].sum())} crossed; equal bit for bit")
+        if name == timed:
+            ms_p = a.elapsed_time(b)
+
+            def kernel():
+                return tlas.premask(lo, hi, o, d, best_t)
+
+            ms_k, ms_d = _median_ms(kernel), _device_ms(kernel)
+            pb = _bound(float(n) * k * FLOP_PER_BOX + 3.0 * n,
+                        28.0 * n + 32.0 * k)
+            line += (f"; kernel {ms_k:.4f} ms (one launch, median of 5; "
+                     f"device {ms_d:.4f} ms), plain {ms_p:.1f} ms (one run), "
+                     f"bound {pb['bound_ms']:.5f} ms ({pb['bound_by']}, "
+                     f"{pb['flop']:.4g} FLOP, {pb['bytes']:.0f} B), share "
+                     f"of bound {pb['bound_ms'] / ms_k:.4f} (device "
+                     f"{pb['bound_ms'] / ms_d:.4f})")
+            if g == spheres:
+                report["tlas_premask"].update(ms=ms_k, device_ms=ms_d,
+                                              plain_ms=ms_p, **pb)
+        print(line)
+    for (name, g), (args, out_k) in sorted(held.walk.items()):
+        rows, o, d, state, order, count, t_eps, any_hit = args
+        stats = {}
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out_p = tlas.walk_group_ref(rows, o, d, state, order, count, t_eps,
+                                    any_hit, stats=stats)
+        b.record()
+        torch.cuda.synchronize()
+        _check(_bits_equal(out_k, out_p),
+               f"tlas walk kernel != walk_group_ref on the {name} launch of "
+               f"BLAS {g}")
+        report["tlas_walk"]["err"] = max(
+            report["tlas_walk"]["err"],
+            float((out_k[0] - out_p[0]).abs().max()))
+        n = o.shape[0]
+        live = int(stats["walked"].sum())
+        if 0 < live < n:
+            culled_live.add((name, g))
+        line = (f"phase 10: tlas_walk vs walk_group_ref on the {name} launch "
+                f"of BLAS {g} ({rows['tri_table'].shape[0]} triangles, "
+                f"{'any' if any_hit else 'closest'} hit): {n} lanes, "
+                f"{int(count)} touched instances, {live} lanes walked, "
+                f"{n - live} culled by every box, {stats['walks']} walks, "
+                f"{int((out_k[1] != state[1]).sum())} lanes with a new hit; "
+                f"equal bit for bit")
+        if name == timed:
+            ms_p = a.elapsed_time(b)
+
+            def kernel():
+                return tlas.walk_group(rows, o, d, state, order, count,
+                                       t_eps, any_hit)
+
+            ms_k, ms_d = _median_ms(kernel), _device_ms(kernel)
+            wb = _tlas_walk_bound(args, out_k, stats)
+            line += (f"; kernel {ms_k:.4f} ms (one launch, median of 5; "
+                     f"device {ms_d:.4f} ms), plain {ms_p:.1f} ms (one run), "
+                     f"bound {wb['bound_ms']:.5f} ms ({wb['bound_by']}, "
+                     f"{wb['bytes']:.0f} B, {stats['box_tests']} box tests, "
+                     f"{stats['walks']} transforms, "
+                     f"{stats.get('visits', 0)} node visits of "
+                     f"{wb['nodes']} distinct nodes, {stats.get('tests', 0)} "
+                     f"triangle tests of {wb['tris']} distinct triangles; "
+                     f"{wb['half_ms']:.5f} ms at the unfused half rate), "
+                     f"share of bound {wb['bound_ms'] / ms_k:.4f} (device "
+                     f"{wb['bound_ms'] / ms_d:.4f}); longest walk "
+                     f"{stats.get('longest', 0)} nodes")
+            if g == spheres:
+                report["tlas_walk"].update(ms=ms_k, device_ms=ms_d,
+                                           plain_ms=ms_p, **wb)
+        print(line)
+    groups = {g for _, g in held.walk}
+    _check(set(held.premask) == set(held.walk)
+           and all({g for name_, g in held.walk if name_ == name} == groups
+                   for name in streams),
+           f"tlas launches held: premask {sorted(held.premask)}, walk "
+           f"{sorted(held.walk)}")
+    _check(all((name, spheres) in culled_live
+               for name in ("bounce", "shadow")),
+           f"no tlas walk launch with culled and live lanes on the spheres' "
+           f"BLAS in the bounce or the shadow stream: {sorted(culled_live)}")
+    return report
+
+
+def _tlas_against_bvh(rs) -> dict:
     """The tlas intersector on the main path's chunk-0 streams (primary
     and bounce closest hit, the depth-0 shadow launch any hit), with the
-    traversal kernel's launches caught: per stream and BLAS the launch
-    with the most live lanes among those that also have culled lanes
-    (``t_max`` 0; else the launch with the most live lanes) is held
-    against traverse_wide_ref on the same tensors, t, prim, u and v bit
-    for bit. Every BLAS must be held so in some stream, and the spheres'
-    BLAS (60 instances) with culled and live lanes in the bounce (closest
-    hit) and the shadow (any hit) stream; chunk 0's primary rays, the top
-    of the image, touch no sphere. Then the tlas
-    results against the bvh intersector's on the same rays: per stream
-    at most ``TLAS_APART`` of the lanes hit (or are occluded) in one
-    only or on another triangle, and where both hit one triangle their t
-    is apart by less than 1e-4 relative (tests/test_visit.py's bar).
-    Returns the largest kernel-plain difference of t."""
+    two tlas kernels' launches caught: every BLAS group's premask launch
+    against premask_ref and its walk launch against walk_group_ref on the
+    same tensors, bit for bit, the bounce chunk's timed. The spheres'
+    BLAS (60 instances) must have a walk launch with culled and live
+    lanes in the bounce (closest hit) and the shadow (any hit) stream;
+    chunk 0's primary rays, the top of the image, touch no sphere. Then
+    one intersector call of each kind under
+    torch.cuda.set_sync_debug_mode("error"): nothing may be read to the
+    host. Then the tlas results against the bvh intersector's on the
+    same rays: per stream at most ``TLAS_APART`` of the lanes hit (or
+    are occluded) in one only or on another triangle, and where both hit
+    one triangle their t is apart by less than 1e-4 relative
+    (tests/test_visit.py's bar). Returns the two kernels' reports."""
     import torch
-    from rfw_tpu_torch.ops import traverse
+    from rfw_tpu_torch.ops import cuda_lib
     from rfw_tpu_torch.render.intersectors import make_intersector
     scene, streams, _ = _streams(rs)
     cfg = rs.config
     tlas, bvh = make_intersector("tlas", cfg), make_intersector("bvh", cfg)
     blas = scene["tlas"]["blas"]
-    blas_ix = {id(bl): i for i, bl in enumerate(blas)}
     spheres = max(range(len(blas)), key=lambda i: blas[i]["inst_base"]
                   .shape[0])
-    launch, caught, current = traverse.traverse_wide, {}, [None]
 
-    def catching(o, d, b, tris, **kw):
-        out = launch(o, d, b, tris, **kw)
-        key = (current[0], blas_ix[id(b)])
-        live = int((kw["t_max"] > kw["t_epsilon"]).sum())
-        rank = (bool((kw["t_max"] == 0).any()) and live > 0, live)
-        if key not in caught or rank > caught[key][-1]:
-            caught[key] = (o, d, b, tris, kw, out, rank)
-        return out
+    def run(name, o, d, tm):
+        return (tlas.occluded(scene, o, d, tm) if name == "shadow"
+                else tlas.closest(scene, o, d, tm))
 
     results = {}
-    traverse.traverse_wide = catching
-    try:
+    cuda_lib.reset_launch_counts()
+    with _TlasLaunches() as held:
         for name, (o, d, tm) in streams.items():
-            current[0] = name
-            results[name] = (tlas.occluded(scene, o, d, tm)
-                             if name == "shadow"
-                             else tlas.closest(scene, o, d, tm))
+            held.label = name
+            results[name] = run(name, o, d, tm)
+    counts = dict(cuda_lib.launch_counts)
+    want = {k: (len(blas) * len(streams)
+                if k in ("tlas_premask", "tlas_walk") else 0) for k in counts}
+    _check(counts == want, f"tlas calls on the chunk-0 streams launched "
+           f"{counts}, expected {want}")
+    report = _tlas_kernels(held, streams, spheres, float(cfg.t_epsilon),
+                           "bounce")
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name in ("bounce", "shadow"):
+            again = run(name, *streams[name])
     finally:
-        traverse.traverse_wide = launch
-    err = 0.0
-    for (name, i), (o, d, b, tris, kw, out_k, _) in sorted(
-            caught.items()):
-        out_p = traverse.traverse_wide_ref(o, d, b, tris, **kw)
-        torch.cuda.synchronize()
-        _check(_bits_equal(out_k, out_p),
-               f"traverse kernel != plain on the tlas {name} launch of "
-               f"BLAS {i}")
-        err = max(err, float((out_k[0] - out_p[0]).abs().max()))
-        print(f"phase 10: traverse kernel vs traverse_wide_ref on a tlas "
-              f"{name} launch of BLAS {i} ({tris.shape[0]} triangles, "
-              f"{'any' if kw['any_hit'] else 'closest'} hit): "
-              f"{o.shape[0]} lanes, {int((kw['t_max'] == 0).sum())} "
-              f"culled, {int((out_k[1] >= 0).sum())} hits; equal bit for "
-              f"bit")
-    _check({i for _, i in caught} == set(range(len(blas))),
-           f"tlas launches held for BLASes {sorted(caught)} of "
-           f"{len(blas)}")
-    _check(all(caught.get((name, spheres), ((False, 0),))[-1][0]
-               for name in ("bounce", "shadow")),
-           "no tlas launch with culled and live lanes on the spheres' BLAS "
-           "in the bounce or the shadow stream")
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _check(torch.equal(again, results["shadow"]),
+           "the shadow call under the sync check gave another result")
+    print("phase 10: tlas closest (bounce) and occluded (shadow) calls ran "
+          "under torch.cuda.set_sync_debug_mode(\"error\"): no host sync")
 
     for name, (o, d, tm) in streams.items():
         bar = TLAS_APART * o.shape[0]
@@ -1648,20 +1845,23 @@ def _tlas_against_bvh(rs) -> float:
                f"hit in one only, {other} on another triangle, relative t "
                f"{rel_max}")
     torch.cuda.synchronize()
-    return err
+    return report
 
 
 def phase_tlas(png, profile):
     """Phase 10: the instanced slice on the tlas intersector at 1080p.
     The same system renders 4 spp on bvh, then on tlas (a full build
-    with the BLASes), and the two frames must agree; then the tlas slice
-    is timed as phase 5 (no visit-list kernel may launch) with the
-    traverse launches per sample and the touched instances per
-    intersector call; then a 1-spp frame raw and denoised against the
-    slice's converged frame, and FXAA; then 8 moves of one sphere, which
-    must refresh the instance tables without a full build and render
-    like a fresh build. Returns the slice's launches and the largest
-    kernel-plain difference of t on its held traverse launches."""
+    with the BLASes), and the two frames must agree; then the two tlas
+    kernels are held to their plain versions on the chunk-0 streams
+    (``_tlas_against_bvh``); then the tlas slice is timed as phase 5
+    (the two tlas kernels must launch, no traverse and no visit-list
+    kernel) with the tlas launches per sample and the touched instances
+    per intersector call; then a 1-spp frame raw and denoised against
+    the slice's converged frame, and FXAA; then 8 moves of one sphere,
+    which must refresh the instance tables without a full build and
+    render like a fresh build. Returns the slice's launches and the two
+    tlas kernels' reports (times, bounds, largest kernel-plain
+    difference of t)."""
     import torch
     import rfw_tpu_torch.render.engines as engines
     import rfw_tpu_torch.render.scene_data as sd
@@ -1723,23 +1923,35 @@ def phase_tlas(png, profile):
                   f"1e-2: {int((diff > 1e-2).sum())}, by more than 1e-5: "
                   f"{int((diff > 1e-5).sum())} of {diff.size}")
             _check(rmse < 2e-3, f"tlas frame RMSE {rmse} >= 2e-3")
-            err = _tlas_against_bvh(rs)
+            report = _tlas_against_bvh(rs)
 
             launches, converged = phase_slice(rs, n_tris, "phase 10", png,
-                                              profile, ("traverse",))
-            _check(all(launches[k] == 0 for k in VISIT_LIST),
-                   f"the tlas slice launched visit-list kernels: {launches}")
+                                              profile, TLAS_KERNELS)
+            _check(all(launches[k] == 0 for k in ("traverse", *VISIT_LIST)),
+                   f"the tlas slice launched traverse or visit-list kernels: "
+                   f"{launches}")
             phase_depth_split(rs, "phase 10")
-            # the touched instances of each intersector call: the
-            # traverse launches it made, one a touched instance
+            # the touched instances of each intersector call: the sum of
+            # its walk launches' counts, read after the frame; each call
+            # launches one premask and one walk a BLAS group
+            from rfw_tpu_torch.bvh import tlas as tlas_mod
             drv = rs.context._driver
-            isect, per_call, all_occluded = drv._intersector, [], []
+            n_groups = len(tl["blas"])
+            isect, calls, all_occluded = drv._intersector, [], []
+            walk_group, counts = tlas_mod.walk_group, []
+
+            def counting_walk(rows, o, d, state, order, count, *a, **kw):
+                counts.append(count)
+                return walk_group(rows, o, d, state, order, count, *a, **kw)
 
             def counted(fn):
                 def run(*a, **kw):
-                    n0 = cuda_lib.launch_counts["traverse"]
+                    n0 = (len(counts), cuda_lib.launch_counts["tlas_premask"],
+                          cuda_lib.launch_counts["tlas_walk"])
                     out = fn(*a, **kw)
-                    per_call.append(cuda_lib.launch_counts["traverse"] - n0)
+                    calls.append((n0, (
+                        len(counts), cuda_lib.launch_counts["tlas_premask"],
+                        cuda_lib.launch_counts["tlas_walk"])))
                     if fn is isect.occluded:
                         # when rfw_tpu's any-hit loop could stop early
                         all_occluded.append(bool(out.all()))
@@ -1749,15 +1961,25 @@ def phase_tlas(png, profile):
             drv._intersector = isect._replace(
                 closest=counted(isect.closest),
                 occluded=counted(isect.occluded))
+            tlas_mod.walk_group = counting_walk
             try:
                 rs.render_frame(status=RenderStatus.CONVERGE, samples=1)
             finally:
                 drv._intersector = isect
+                tlas_mod.walk_group = walk_group
+            touched = torch.cat(counts).tolist()
+            per_call = [sum(touched[a[0]:b[0]]) for a, b in calls]
+            _check(all(b[i] - a[i] == n_groups for a, b in calls
+                       for i in range(3)),
+                   f"an intersector call did not launch one premask and one "
+                   f"walk a BLAS group: {calls}")
             per = SLICE_WINDOWS * WINDOW_SAMPLES
-            print(f"phase 10: {launches['traverse'] / per:.2f} traverse "
-                  f"launches a sample; touched instances an intersector "
-                  f"call: mean {float(np.mean(per_call)):.2f}, max "
-                  f"{max(per_call)} over {len(per_call)} calls of one "
+            print(f"phase 10: {launches['tlas_premask'] / per:.2f} "
+                  f"tlas_premask and {launches['tlas_walk'] / per:.2f} "
+                  f"tlas_walk launches a sample ({n_groups} BLAS groups a "
+                  f"call); touched instances an intersector call (the walk "
+                  f"launches' counts): mean {float(np.mean(per_call)):.2f}, "
+                  f"max {max(per_call)} over {len(per_call)} calls of one "
                   f"sample; occlusion calls with every lane occluded "
                   f"{sum(all_occluded)} of {len(all_occluded)}")
 
@@ -1839,7 +2061,7 @@ def phase_tlas(png, profile):
     finally:
         sd.build_device_scene, sd._build_tlas_tables = build, tables
         sd.retransform_instances = retransform
-    return launches, err
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -2296,7 +2518,7 @@ EXAMPLES = (
     ("cornell", "cornell", [], ("traverse",), (256, 256, 1)),
     ("textured_env", "textured_env", [], ("traverse",), (256, 256, 1)),
     ("instances", "instances", [], ("traverse",), (160, 160, 6)),
-    ("instances --tlas", "instances", ["--tlas"], ("traverse",),
+    ("instances --tlas", "instances", ["--tlas"], TLAS_KERNELS,
      (160, 160, 6)),
     ("animation", "animation", [], ("traverse",), (160, 160, 8)),
     ("viewer", "viewer", ["--size", "256", "--duration", "3"],
@@ -2325,17 +2547,19 @@ def _clone(x):
 
 
 class _Held:
-    """While entered, wraps the traverse, enum and visit wrappers so that
-    of each kernel's launches the one with the most live lanes is kept,
-    inputs and output cloned, for the comparison with its plain version
-    after the run."""
+    """While entered, wraps the traverse, enum, visit and the two tlas
+    wrappers so that of each kernel's launches the one with the most live
+    lanes (for the tlas kernels: rays) is kept, inputs and output cloned,
+    for the comparison with its plain version after the run."""
 
     def __enter__(self):
+        from rfw_tpu_torch.bvh import tlas
         from rfw_tpu_torch.ops import traverse
         from rfw_tpu_torch.ops import visit_intersect as vi
         self.best = {}
-        self.orig = (traverse.traverse_wide, vi.block_entries, vi.visit)
-        launch_t, launch_e, launch_v = self.orig
+        self.orig = (traverse.traverse_wide, vi.block_entries, vi.visit,
+                     tlas.premask, tlas.walk_group)
+        launch_t, launch_e, launch_v, launch_p, launch_w = self.orig
 
         def keep(kernel, live, args, out):
             if live > self.best.get(kernel, (-1,))[0]:
@@ -2363,23 +2587,41 @@ class _Held:
                   gran.k_size, eps, any_hit), out)
             return out
 
+        def premask_held(lo, hi, o, d, best_t, ray_chunk=65536):
+            out = launch_p(lo, hi, o, d, best_t, ray_chunk)
+            keep("tlas_premask", o.shape[0], (lo, hi, o, d, best_t), out)
+            return out
+
+        def walk_held(rows, o, d, state, order, count, t_epsilon,
+                      any_hit=False):
+            out = launch_w(rows, o, d, state, order, count, t_epsilon,
+                           any_hit)
+            keep("tlas_walk", o.shape[0],
+                 (rows, o, d, state, order, count, t_epsilon, any_hit), out)
+            return out
+
         traverse.traverse_wide = traverse_held
         vi.block_entries, vi.visit = enum_held, visit_held
+        tlas.premask, tlas.walk_group = premask_held, walk_held
         return self
 
     def __exit__(self, *exc):
+        from rfw_tpu_torch.bvh import tlas
         from rfw_tpu_torch.ops import traverse
         from rfw_tpu_torch.ops import visit_intersect as vi
-        traverse.traverse_wide, vi.block_entries, vi.visit = self.orig
+        (traverse.traverse_wide, vi.block_entries, vi.visit, tlas.premask,
+         tlas.walk_group) = self.orig
 
     def against_plain(self, label) -> dict:
         """Each held launch against its plain version, bit for bit.
         Returns the largest kernel-plain difference per kernel."""
         import torch
+        from rfw_tpu_torch.bvh import tlas
         from rfw_tpu_torch.ops import traverse
         from rfw_tpu_torch.ops import visit_intersect as vi
         err = {}
         for kernel, (live, args, out_k) in sorted(self.best.items()):
+            equal, t_at = _bits_equal, 0       # the output holding t
             if kernel == "traverse":
                 a, kw = args
                 out_p = traverse.traverse_wide_ref(*a, **kw)
@@ -2388,15 +2630,26 @@ class _Held:
             elif kernel == "enum":
                 out_k, out_p = (out_k,), (vi.block_entries_ref(*args),)
                 lanes, mode = args[0].shape[1], f"{args[1].shape[1]} cells"
+            elif kernel == "tlas_premask":
+                lo, hi, o, d, best_t = args
+                out_p = tlas.premask_ref(lo, hi, o, tlas.safe_inv_box_dir(d),
+                                         best_t)
+                equal, t_at = _premask_equal, 1   # (cross, tn_min)
+                lanes, mode = o.shape[0], f"{lo.shape[0]} instances"
+            elif kernel == "tlas_walk":
+                out_p = tlas.walk_group_ref(*args)
+                lanes = args[1].shape[0]
+                mode = (f"{int(args[5])} of {args[4].shape[0]} instances "
+                        f"touched, {'any hit' if args[-1] else 'closest'}")
             else:
                 out_p = vi.visit_ref(*args)
                 lanes = args[0].shape[1]
                 mode = "any hit" if args[-1] else "closest"
             torch.cuda.synchronize()
-            _check(_bits_equal(out_k, out_p),
+            _check(equal(out_k, out_p),
                    f"{label}: {kernel} kernel != plain on its launch with "
                    f"the most live lanes")
-            err[kernel] = float((out_k[0] - out_p[0]).abs().max())
+            err[kernel] = float((out_k[t_at] - out_p[t_at]).abs().max())
             print(f"phase 12: {label}: {kernel} kernel vs its plain version "
                   f"on the launch with the most live lanes ({live} of "
                   f"{lanes}, {mode}): equal bit for bit")
@@ -2631,10 +2884,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     png10 = args.png and os.path.splitext(args.png)[0] + "_tlas.png"
-    launches_10, err_10 = phase_tlas(png10, args.profile)
-    print(f"phase 10: {time.perf_counter() - t0:.1f} s; traverse launches "
-          f"in the timed windows of phases 9 and 10: {launches['traverse']}"
-          f", {launches_10['traverse']}")
+    launches_10, report_10 = phase_tlas(png10, args.profile)
+    report.update(report_10)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s; launches in its "
+          f"timed windows: {launches_10}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches_11, err_11 = phase_11()
@@ -2649,27 +2902,29 @@ def main() -> int:
           f"examples' runs: {launches_12}")
     # each kernel's launches in the timed windows of the phases whose
     # path it is: enum and visit phase 5 (visit), expand and tvisit phase
-    # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas); all
-    # of them in phase 11 (raster, tiles); the examples' in phase 12
+    # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas, 0),
+    # the two tlas kernels phase 10; all of them in phase 11 (raster,
+    # tiles); the examples' in phase 12
     by_phase = {"enum": {"5": launches["enum"]},
                 "visit": {"5": launches["visit"]},
                 "expand": {"6": launches["expand"]},
                 "tvisit": {"6": launches["tvisit"]},
                 "traverse": {"9": launches["traverse"],
-                             "10": launches_10["traverse"]}}
-    launches["traverse"] += launches_10["traverse"]
+                             "10": launches_10["traverse"]},
+                **{k: {"10": launches_10[k]} for k in TLAS_KERNELS}}
+    for name in ("traverse", *TLAS_KERNELS):
+        launches[name] += launches_10[name]
     for name in KERNELS:
         by_phase[name]["11"] = launches_11[name]
         by_phase[name]["12"] = launches_12[name]
         launches[name] += launches_11[name] + launches_12[name]
-    report["traverse"]["err"] = max(report["traverse"]["err"], err_10)
     for name, e in (*err_11.items(), *err_12.items()):
         report[name]["err"] = max(report[name]["err"], e)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print("phase 8: launches per deformation frame (1080p, 1 spp): "
           + json.dumps(launches_8))
 
-    # no single PyTorch call computes any of the five functions
+    # no single PyTorch call computes any of the seven functions
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_by_phase": by_phase[name],

@@ -11,10 +11,14 @@ those (``TLAS.refit``); no BLAS is rebuilt.
 and triangle tables and its instances' rows, ``group_instances``). Per
 BLAS a premask slab-tests every (ray, instance) pair and keeps the
 instances some ray crosses, front to back by their nearest entry; each
-of those walks the BLAS with ``traverse_wide`` (the traversal kernel on
-CUDA tensors, its plain version on CPU tensors), the rays that miss its
-world box as dead lanes (``t_max`` 0), the others in object space (the
-direction left unnormalised, so object t equals world t).
+ray then walks those of them whose world box it enters below its best t,
+in object space (the direction left unnormalised, so object t equals
+world t). On CUDA tensors that is two hand-written kernels a BLAS
+(``csrc/tlas_kernel.cu``: ``premask`` and ``walk_group``, with the visit
+order sorted on the device between them), and nothing is read to the
+host; on CPU tensors ``walk_ref``, which reads the touched instances and
+walks each with the traversal's plain version. ``premask_ref`` and
+``walk_group_ref`` are the two kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import traverse
+from ..ops import cuda_lib, traverse
+from ..ops.cuda_lib import check_inputs, launch_counts, ptr
 from ..ops.intersect import BIG_T
 from .builder import build_bvh, triangle_bounds
 from .wide import WideBVH, collapse_wide
@@ -207,51 +212,69 @@ def to_object(inv, o, d):
     return o_obj, d_obj
 
 
-def walk(tables: dict, o, d, t_max, t_epsilon: float,
-         any_hit: bool = False, ray_chunk: int = 65536):
-    """The two-level walk of rays (R, 3) over ``tables`` ({"blas": one
-    dict a BLAS}, each with ``walk_tables``' tables, "prim_order" and its
-    instances' rows), BLAS by BLAS, as rfw_tpu's ``tlas`` intersector: a
-    premask slab-tests every (ray, instance) pair of the BLAS
-    (``ray_chunk`` rays at a time) and keeps the instances some ray
-    crosses, ordered front to back by their nearest entry (a stable
-    sort, so ties keep instance order); each of those is walked in turn.
-    A walk culls the rays that miss the instance's world box (or, for
-    any hit, already hit) to dead lanes, ``t_max`` 0, which the traversal
-    kernel writes without a walk: the reference skips an instance no ray
-    enters, and here a launch of dead lanes changes nothing, so no host
-    sync an instance is needed. One host read a BLAS and call: the
-    touched instances. ``t_max`` is a number or one bound a ray.
-
-    Returns (t, orig, u, v): ``orig`` the hit triangle in the flattened
-    input order (``inst_base + prim_order[prim]``), -1 where none, and t
-    the ray's ``t_max`` there."""
+def premask_ref(lo, hi, o, inv_d, best_t, ray_chunk: int = 65536):
+    """The premask of one BLAS's instances, boxes ``lo``, ``hi`` (k, 3),
+    over rays ``o`` (R, 3) with the box reciprocals ``inv_d``
+    (``safe_inv_box_dir``): per instance, does any ray cross its box
+    (``box_hit`` below the ray's ``best_t``), and the least max(tnear, 0)
+    over the crossing rays, BIG_T where none does; ``ray_chunk`` rays a
+    slab pass. ``+ 0.0`` makes a -0.0 entry +0.0, as the kernel's bits
+    order it. Returns (cross (k,) bool, tn_min (k,) float32)."""
     n = o.shape[0]
-    best_t = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=o.device), (n,)).clone()
-    best_orig = torch.full((n,), -1, dtype=torch.int32, device=o.device)
-    best_u = torch.zeros(n, device=o.device)
-    best_v = torch.zeros(n, device=o.device)
+    cross = torch.zeros(lo.shape[0], dtype=torch.bool, device=o.device)
+    tn_min = torch.full((lo.shape[0],), BIG_T, device=o.device)
+    for s in range(0, n, ray_chunk):
+        sl = slice(s, s + ray_chunk)
+        hit, tn = box_hit(lo, hi, o[sl, None], inv_d[sl, None],
+                          best_t[sl, None])
+        cross |= hit.any(0)
+        tn_min = torch.minimum(tn_min, torch.where(
+            hit, torch.clamp(tn, min=0.0) + 0.0, BIG_T).amin(0))
+    return cross, tn_min
+
+
+def visit_order(cross, tn_min):
+    """The instances some ray crosses first, front to back by their
+    nearest entry (a stable sort, so ties keep instance order), and how
+    many they are, both left on the device: (order (k,) int32, count
+    (1,) int32)."""
+    order = torch.argsort(torch.where(cross, tn_min, torch.inf), stable=True)
+    return order.int(), cross.sum(dtype=torch.int32).reshape(1)
+
+
+def start_state(o, t_max) -> tuple:
+    """A walk's state before the first BLAS: (t_max a ray, orig -1, u 0,
+    v 0). ``t_max`` is a number or a tensor broadcast to the rays; a
+    number is filled on the device, with no copy from the host."""
+    n, dev = o.shape[0], o.device
+    if torch.is_tensor(t_max):
+        best_t = torch.broadcast_to(t_max.to(device=dev, dtype=torch.float32),
+                                    (n,)).contiguous()
+    else:
+        best_t = torch.full((n,), float(t_max), device=dev)
+    return (best_t, torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(n, device=dev), torch.zeros(n, device=dev))
+
+
+def walk_ref(tables: dict, o, d, t_max, t_epsilon: float,
+             any_hit: bool = False, ray_chunk: int = 65536):
+    """The plain version of ``walk``, with one host read a BLAS: per
+    BLAS ``premask_ref`` and the touched instances read in their visit
+    order, each walked in turn with ``traverse_wide`` (the traversal
+    kernel on CUDA tensors, its plain version on CPU tensors). A walk
+    culls the rays that miss the instance's world box (or, for any hit,
+    already hit) to dead lanes, ``t_max`` 0, which the traversal writes
+    without a walk."""
+    best_t, best_orig, best_u, best_v = start_state(o, t_max)
     inv_d = safe_inv_box_dir(d)
     for blas in tables["blas"]:
         lo_all, hi_all = blas["inst_bmin"], blas["inst_bmax"]
-        # premask: does any ray cross instance i, and its nearest entry
-        # over the crossing rays
-        cross = torch.zeros(lo_all.shape[0], dtype=torch.bool,
-                            device=o.device)
-        tn_min = torch.full((lo_all.shape[0],), BIG_T, device=o.device)
-        for s in range(0, n, ray_chunk):
-            sl = slice(s, s + ray_chunk)
-            hit, tn = box_hit(lo_all, hi_all, o[sl, None], inv_d[sl, None],
-                              best_t[sl, None])
-            cross |= hit.any(0)
-            tn_min = torch.minimum(tn_min, torch.where(
-                hit, torch.clamp(tn, min=0.0), BIG_T).amin(0))
-        order = torch.argsort(torch.where(cross, tn_min, torch.inf),
-                              stable=True)
+        cross, tn_min = premask_ref(lo_all, hi_all, o, inv_d, best_t,
+                                    ray_chunk)
+        order, count = visit_order(cross, tn_min)
         # one read: the touched instances lead the order
-        ids, flags = torch.stack([order, cross[order].long()]).tolist()
-        for i in ids[:sum(flags)]:
+        touched, *ids = torch.cat([count, order]).tolist()
+        for i in ids[:touched]:
             hit_box, _ = box_hit(lo_all[i], hi_all[i], o, inv_d, best_t)
             if any_hit:
                 hit_box &= best_orig < 0
@@ -269,6 +292,201 @@ def walk(tables: dict, o, d, t_max, t_epsilon: float,
             best_u = torch.where(better, u_i, best_u)
             best_v = torch.where(better, v_i, best_v)
     return best_t, best_orig, best_u, best_v
+
+
+def walk_group_ref(rows: dict, o, d, state, order, count, t_epsilon: float,
+                   any_hit: bool = False, stats: dict | None = None):
+    """The plain version of ``tlas_walk_kernel``: rays (R, 3) from
+    ``state`` = (t, orig, u, v) over the BLAS group ``rows`` (its tables
+    and its instances' rows), entry q of ``order`` for every q below
+    ``count`` (read on the device, as the kernel reads it), each ray
+    walking instance ``order[q]`` where its box is hit below the ray's
+    best t (any hit: only while the ray has no hit), in object space
+    with ``traverse_wide_ref``. Returns the new state. ``stats``, when
+    given, receives ``traverse_wide_ref``'s counts over the walks
+    (visits, tests, node_seen, tri_seen, longest) and ``box_tests`` (the
+    (ray, instance) box tests the kernel runs), ``walks`` (the (ray,
+    instance) walks, each a transform) and ``walked`` (R,), the rays
+    that walked at least once."""
+    best_t, best_orig, best_u, best_v = state
+    inv_d = safe_inv_box_dir(d)
+    walked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for q in range(order.shape[0]):
+        i = order[q].long()
+        tested = torch.broadcast_to(count > q, best_orig.shape)
+        if any_hit:
+            tested = tested & (best_orig < 0)
+        hit_box, _ = box_hit(rows["inst_bmin"][i], rows["inst_bmax"][i], o,
+                             inv_d, best_t)
+        hit_box &= tested
+        o_obj, d_obj = to_object(rows["inst_inv"][i], o, d)
+        t_max = torch.where(hit_box, best_t, 0.0)
+        t_i, prim_i, u_i, v_i = traverse.traverse_wide_ref(
+            o_obj, d_obj, rows, rows["tri_table"],
+            leaf_size=traverse.LEAF_SIZE, t_max=t_max, t_epsilon=t_epsilon,
+            any_hit=any_hit, stats=stats)
+        if stats is not None:
+            walks = t_max > t_epsilon
+            stats["box_tests"] = stats.get("box_tests", 0) + int(
+                tested.sum())
+            stats["walks"] = stats.get("walks", 0) + int(walks.sum())
+            walked |= walks
+        better = (prim_i >= 0) & (t_i < best_t)
+        orig = rows["inst_base"][i] + rows["prim_order"][
+            torch.clamp(prim_i, min=0).long()]
+        best_t = torch.where(better, t_i, best_t)
+        best_orig = torch.where(better, orig, best_orig)
+        best_u = torch.where(better, u_i, best_u)
+        best_v = torch.where(better, v_i, best_v)
+    if stats is not None:
+        stats["walked"] = stats.get("walked", walked) | walked
+    return best_t, best_orig, best_u, best_v
+
+
+def _check_shape(name, t, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def group_buffers(rows: dict, device=None) -> tuple:
+    """The tensors of a BLAS group that ``tlas_walk_kernel`` reads, in
+    its argument order: "inst_bmin", "inst_bmax" (k, 3) float32,
+    "inst_inv" (k, 4, 4) float32 (row r of instance i at 16 i + 4 r),
+    "inst_base" (k,) int32, "nodes" (N, 8, 4) float32, "tri_table" (T,
+    3, 4) float32 and "prim_order" (T,) int32, each checked (on
+    ``device``, by default the nodes'), none converted: the refreshed
+    rows of an instance move are read as they stand."""
+    k = rows["inst_base"].shape[0]
+    n_tri = rows["tri_table"].shape[0]
+    want = (("inst_bmin", torch.float32, (k, 3)),
+            ("inst_bmax", torch.float32, (k, 3)),
+            ("inst_inv", torch.float32, (k, 4, 4)),
+            ("inst_base", torch.int32, (k,)),
+            ("nodes", torch.float32, (rows["nodes"].shape[0], 8, 4)),
+            ("tri_table", torch.float32, (n_tri, 3, 4)),
+            ("prim_order", torch.int32, (n_tri,)))
+    for name, dtype, shape in want:
+        _check_shape(name, rows[name], shape)
+    check_inputs(rows["nodes"].device if device is None else device,
+                 **{name: (rows[name], dtype) for name, dtype, _ in want})
+    return tuple(rows[name] for name, _, _ in want)
+
+
+def _rays(o, d):
+    n = o.shape[0]
+    _check_shape("origins", o, (n, 3))
+    _check_shape("directions", d, (n, 3))
+    return n, o.contiguous(), d.contiguous()
+
+
+def premask(lo, hi, o, d, best_t, ray_chunk: int = 65536):
+    """``premask_ref`` of the boxes ``lo``, ``hi`` (k, 3) over rays (R,
+    3) below ``best_t`` (R,): ``tlas_premask_kernel`` on CUDA tensors
+    (one thread a ray over every box; ``ray_chunk`` is not needed), the
+    plain version on CPU tensors. Returns (cross (k,) bool, tn_min (k,)
+    float32)."""
+    if not cuda_lib.kernel_device(o, "tlas"):
+        return premask_ref(lo, hi, o, safe_inv_box_dir(d), best_t, ray_chunk)
+    dev = o.device
+    n, o, d = _rays(o, d)
+    k = lo.shape[0]
+    _check_shape("inst_bmin", lo, (k, 3))
+    _check_shape("inst_bmax", hi, (k, 3))
+    _check_shape("best_t", best_t, (n,))
+    check_inputs(dev, origins=(o, torch.float32),
+                 directions=(d, torch.float32),
+                 best_t=(best_t, torch.float32),
+                 inst_bmin=(lo, torch.float32), inst_bmax=(hi, torch.float32))
+    cross = torch.zeros(k, dtype=torch.int32, device=dev)
+    tn_min = torch.full((k,), BIG_T, device=dev)
+    if n == 0 or k == 0:
+        return cross.bool(), tn_min
+    with cuda_lib.launch(dev) as (lib, stream):
+        err = lib.rfw_tlas_premask(ptr(o), ptr(d), ptr(best_t), n, ptr(lo),
+                                   ptr(hi), k, ptr(cross), ptr(tn_min),
+                                   stream)
+        cuda_lib.check(err, "tlas premask kernel")
+    launch_counts["tlas_premask"] += 1
+    return cross.bool(), tn_min
+
+
+def walk_group(rows: dict, o, d, state, order, count, t_epsilon: float,
+               any_hit: bool = False):
+    """``walk_group_ref``'s result: ``tlas_walk_kernel`` on CUDA tensors
+    (one thread a ray over the first ``count`` entries of ``order``, both
+    read on the device), the plain version on CPU tensors. ``state`` is
+    (t, orig, u, v), each (R,); returns the new one."""
+    if not cuda_lib.kernel_device(o, "tlas"):
+        return walk_group_ref(rows, o, d, state, order, count, t_epsilon,
+                              any_hit)
+    dev = o.device
+    n, o, d = _rays(o, d)
+    bufs = group_buffers(rows, dev)
+    t_in, orig_in, u_in, v_in = (x.contiguous() for x in state)
+    for name, x in (("t", t_in), ("orig", orig_in), ("u", u_in),
+                    ("v", v_in)):
+        _check_shape(name, x, (n,))
+    _check_shape("order", order, (rows["inst_base"].shape[0],))
+    _check_shape("count", count, (1,))
+    check_inputs(dev, origins=(o, torch.float32),
+                 directions=(d, torch.float32), t=(t_in, torch.float32),
+                 orig=(orig_in, torch.int32), u=(u_in, torch.float32),
+                 v=(v_in, torch.float32), order=(order, torch.int32),
+                 count=(count, torch.int32))
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    orig = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, orig, u, v
+    with cuda_lib.launch(dev) as (lib, stream):
+        err = lib.rfw_tlas_walk(
+            ptr(o), ptr(d), n, ptr(t_in), ptr(orig_in), ptr(u_in), ptr(v_in),
+            ptr(order), ptr(count), *(ptr(b) for b in bufs),
+            traverse.LEAF_SIZE, float(t_epsilon), int(any_hit), ptr(t),
+            ptr(orig), ptr(u), ptr(v), stream)
+        cuda_lib.check(err, "tlas walk kernel")
+    launch_counts["tlas_walk"] += 1
+    return t, orig, u, v
+
+
+def walk_groups(tables: dict, o, d, t_max, t_epsilon: float,
+                any_hit: bool = False, ray_chunk: int = 65536):
+    """``walk`` BLAS by BLAS through the two wrappers: ``premask`` below
+    the best t the BLASes before left, ``visit_order`` and
+    ``walk_group``; the kernels on CUDA tensors, ``premask_ref`` and
+    ``walk_group_ref`` on CPU tensors. Nothing is read to the host."""
+    state = start_state(o, t_max)
+    for rows in tables["blas"]:
+        cross, tn_min = premask(rows["inst_bmin"], rows["inst_bmax"], o, d,
+                                state[0], ray_chunk)
+        order, count = visit_order(cross, tn_min)
+        state = walk_group(rows, o, d, state, order, count, t_epsilon,
+                           any_hit)
+    return state
+
+
+def walk(tables: dict, o, d, t_max, t_epsilon: float,
+         any_hit: bool = False, ray_chunk: int = 65536):
+    """The two-level walk of rays (R, 3) over ``tables`` ({"blas": one
+    dict a BLAS}, each with ``walk_tables``' tables, "prim_order" and its
+    instances' rows), BLAS by BLAS, as rfw_tpu's ``tlas`` intersector: a
+    premask slab-tests every (ray, instance) pair of the BLAS and keeps
+    the instances some ray crosses, ordered front to back by their
+    nearest entry (a stable sort, so ties keep instance order); each of
+    those is walked in turn, by the rays that hit its world box below
+    their best t (for any hit, that have no hit yet). On CUDA tensors
+    ``walk_groups`` (two kernels a BLAS, no host read), on CPU tensors
+    ``walk_ref`` (``ray_chunk`` rays a premask pass); any other device
+    raises. ``t_max`` is a number or one bound a ray.
+
+    Returns (t, orig, u, v): ``orig`` the hit triangle in the flattened
+    input order (``inst_base + prim_order[prim]``), -1 where none, and t
+    the ray's ``t_max`` there."""
+    if not cuda_lib.kernel_device(o, "tlas"):
+        return walk_ref(tables, o, d, t_max, t_epsilon, any_hit, ray_chunk)
+    return walk_groups(tables, o, d, t_max, t_epsilon, any_hit)
 
 
 def trace_tlas(tlas: TLAS, origins, directions, t_epsilon: float = 1e-4):

@@ -32,7 +32,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", f)
                 for f in ("visit_kernels.cu", "expand_kernel.cu",
-                          "tvisit_kernel.cu", "traverse_kernel.cu"))
+                          "tvisit_kernel.cu", "traverse_kernel.cu",
+                          "tlas_kernel.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -45,7 +46,7 @@ build_log = ""
 # of its kernel here and nowhere else (its plain version on CPU tensors
 # does not count)
 launch_counts = {"enum": 0, "visit": 0, "expand": 0, "tvisit": 0,
-                 "traverse": 0}
+                 "traverse": 0, "tlas_premask": 0, "tlas_walk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -199,6 +200,11 @@ def load() -> ctypes.CDLL:
     lib.rfw_tvisit.restype = i
     lib.rfw_traverse.argtypes = [p, p, p, i, p, p, i, f, i, p, p, p, p, p]
     lib.rfw_traverse.restype = i
+    lib.rfw_tlas_premask.argtypes = [p, p, p, i, p, p, i, p, p, p]
+    lib.rfw_tlas_premask.restype = i
+    lib.rfw_tlas_walk.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p,
+                                  p, p, i, f, i, p, p, p, p, p]
+    lib.rfw_tlas_walk.restype = i
     lib.rfw_error_string.argtypes = [i]
     lib.rfw_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -220,7 +226,8 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = re.search(r"\d+(t?visit_kernel|enum_kernel|expand_kernel"
-                          r"|traverse_kernel)", m.group(1))
+                          r"|traverse_kernel|tlas_premask_kernel"
+                          r"|tlas_walk_kernel)", m.group(1))
             cur = out.setdefault(k.group(1) if k else m.group(1), {})
             continue
         if cur is None:

@@ -12,9 +12,10 @@
 * ``brute`` — O(R·T) dense and exact; the oracle for tiny scenes.
 * ``dense`` — every ray against every cell slot's Woop matrix, plain
   torch; an oracle for tiny scenes.
-* ``tlas`` — the two-level path (``bvh.tlas.walk``): per instance a
-  world-box cull, the rays into object space, and the traversal kernel
-  over the instance's shared BLAS. Needs ``config.use_tlas``.
+* ``tlas`` — the two-level path (``bvh.tlas.walk``): per BLAS a premask
+  of its instances' world boxes, then each ray's walk of the touched
+  instances, in object space over their shared BLAS; two hand-written
+  CUDA kernels a BLAS, no host read. Needs ``config.use_tlas``.
 """
 
 from __future__ import annotations
@@ -130,17 +131,18 @@ def make_tvisit_intersector(config: RenderConfig) -> Intersector:
     return Intersector(closest, occluded)
 
 
-# rays a slab pass of the premask takes at once: bounds its (rays x
-# instances) transient; tests shrink it to run the multi-chunk path
+# rays a slab pass of the plain premask takes at once (the CPU path):
+# bounds its (rays x instances) transient; tests shrink it to run the
+# multi-chunk path
 _TLAS_RAY_CHUNK = 65536
 
 
 def make_tlas_intersector(config: RenderConfig) -> Intersector:
     """The two-level TLAS/BLAS walk over ``scene["tlas"]``
-    (``bvh.tlas.walk``, ``_TLAS_RAY_CHUNK`` rays a premask pass); a hit
-    maps through ``orig_to_perm`` from the flattened input order into the
-    build's order of the shading planes, so shading is that of the flat
-    intersectors."""
+    (``bvh.tlas.walk``; on the CPU ``_TLAS_RAY_CHUNK`` rays a premask
+    pass); a hit maps through ``orig_to_perm`` from the flattened input
+    order into the build's order of the shading planes, so shading is
+    that of the flat intersectors."""
     eps = config.t_epsilon
 
     def _loop(scene, o, d, t_max, any_hit: bool):

@@ -48,7 +48,7 @@ def test_port_imports_no_jax_or_rfw_tpu():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["names"]) >= 50, res["names"]   # the walk found it all
     for sub in ("scene.ply", "scene.gltf", "native", "utils.image",
-                "ops.visit_intersect", "system"):
+                "ops.visit_intersect", "bvh.tlas", "system"):
         assert f"rfw_tpu_torch.{sub}" in res["names"], sub
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 

@@ -16,6 +16,7 @@ import ctypes
 import pytest
 import torch
 
+from rfw_tpu_torch.bvh import tlas
 from rfw_tpu_torch.ops import cuda_lib, traverse
 from rfw_tpu_torch.ops import tvisit_intersect as tv
 from rfw_tpu_torch.ops import visit_intersect as vi
@@ -104,8 +105,29 @@ def _traverse():
         origins, torch.ones((5, 3)), bvh, torch.zeros((1, 3, 4)))
 
 
+def _tlas_premask():
+    origins = torch.zeros((5, 3))
+    return "rfw_tlas_premask", origins, lambda: tlas.premask(
+        torch.zeros((2, 3)), torch.ones((2, 3)), origins, torch.ones((5, 3)),
+        torch.full((5,), 1e30))
+
+
+def _tlas_walk():
+    origins = torch.zeros((5, 3))
+    rows = {"inst_bmin": torch.zeros((2, 3)), "inst_bmax": torch.ones((2, 3)),
+            "inst_inv": torch.eye(4).repeat(2, 1, 1),
+            "inst_base": torch.zeros(2, dtype=torch.int32),
+            "nodes": torch.zeros((1, 8, 4)), "tri_table": torch.zeros((1, 3, 4)),
+            "prim_order": torch.zeros(1, dtype=torch.int32)}
+    return "rfw_tlas_walk", origins, lambda: tlas.walk_group(
+        rows, origins, torch.ones((5, 3)), tlas.start_state(origins, 1e30),
+        torch.arange(2, dtype=torch.int32), torch.ones(1, dtype=torch.int32),
+        1e-4)
+
+
 WRAPPERS = {"enum": _enum, "visit": _visit, "expand": _expand,
-            "tvisit": _tvisit, "traverse": _traverse}
+            "tvisit": _tvisit, "traverse": _traverse,
+            "tlas_premask": _tlas_premask, "tlas_walk": _tlas_walk}
 
 
 @pytest.fixture

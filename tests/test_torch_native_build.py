@@ -51,6 +51,37 @@ def test_ptxas_report_parses_the_log():
         "_Z6helperv": {"registers": 4, "smem": 0}}
 
 
+def test_kernel_sources_and_the_tlas_kernels():
+    """The library builds seven kernels from five sources (one nvcc each)
+    and the headers they share; the report names the two tlas kernels."""
+    names = [os.path.basename(s) for s in cuda_lib.SOURCES]
+    assert names == ["visit_kernels.cu", "expand_kernel.cu",
+                     "tvisit_kernel.cu", "traverse_kernel.cu",
+                     "tlas_kernel.cu"]
+    assert all(os.path.exists(s) for s in cuda_lib.SOURCES)
+    assert [os.path.basename(h) for h in cuda_lib.headers()] == [
+        "bvh_walk.cuh", "kernel_common.cuh"]
+    assert set(cuda_lib.launch_counts) == {
+        "enum", "visit", "expand", "tvisit", "traverse", "tlas_premask",
+        "tlas_walk"}
+    log = textwrap.dedent("""\
+        ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119tlas_premask_kernelEPKfS1_S1_iS1_S1_iPjS2_' for 'sm_90a'
+        ptxas info    : Function properties for _ZN12_GLOBAL__N_119tlas_premask_kernelEPKfS1_S1_iS1_S1_iPjS2_
+            0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 32 registers, 2048 bytes smem, 400 bytes cmem[0]
+        ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116tlas_walk_kernelEPKfS1_iS1_PKiS1_S1_S3_S3_S1_S1_S1_S3_PK6float4S6_S3_ifiPfPiS7_S7_' for 'sm_90a'
+        ptxas info    : Function properties for _ZN12_GLOBAL__N_116tlas_walk_kernelEPKfS1_iS1_PKiS1_S1_S3_S3_S1_S1_S1_S3_PK6float4S6_S3_ifiPfPiS7_S7_
+            256 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 72 registers, 400 bytes cmem[0]
+        """)
+    assert cuda_lib.ptxas_report(log) == {
+        "tlas_premask_kernel": {"stack": 0, "spill_stores": 0,
+                                "spill_loads": 0, "registers": 32,
+                                "smem": 2048},
+        "tlas_walk_kernel": {"stack": 256, "spill_stores": 0,
+                             "spill_loads": 0, "registers": 72, "smem": 0}}
+
+
 def test_native_half_builds_what_the_loader_loads(monkeypatch, capsys):
     assert build.main(["--only", "native"]) == 0
     path = native.library_path()
