@@ -30,16 +30,25 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    tvisit half runs after phase 5, once the same RenderSystem has been
    switched to the tvisit intersector (set_setting, which rebuilds the
    scene with the child-cell tables): the quantisation step diag/qmax of
-   both key tables against numpy's IEEE quotient; then on pass 0's parent
-   window of each chunk the expansion kernel against expand_children_ref
-   (cids, counts and tnears equal) and tvisit against tvisit_ref on the
-   kernel's own lists (t and slot equal, closest and any-hit), timed and
-   bounded as above. The traversal kernel is held to traverse_wide_ref
-   bit for bit (t, prim, u and v), closest and any hit: first on edge
-   batches (the comb BVH, whose walks overflow the 64-entry stack;
-   axis-parallel rays, zero direction components and zero directions;
-   dead and NaN t_max lanes in every warp; n = 0, 1, 33, one above a
-   block of the kernel and one above 512 blocks), then on the same two
+   both key tables against numpy's IEEE quotient; the expansion kernel's
+   registers, shared memory, spills and resident blocks per SM; the
+   kernel against expand_children_ref (cids, counts and tnears equal) on
+   pass 0 and pass 1 of the primary, bounce and depth-0 shadow streams
+   and on made-up windows on the bounce rays (every parent real, invalid
+   parents interleaved, one live lane a sub-block, dead and NaN t_hi
+   blocks, a ray whose far-point box entry lies below its t_hi), with
+   each window's mean real child slots and live lanes a block and its
+   device time (rfw_tpu_torch/tools/expand_times.py times an earlier
+   checkout's kernel against this one on the same windows); then on
+   pass 0's parent window of each chunk the expansion, and tvisit
+   against tvisit_ref on the kernel's own lists (t and slot equal,
+   closest and any-hit), timed and bounded as above. The traversal
+   kernel is held to traverse_wide_ref bit for bit (t, prim, u and v),
+   closest and any hit: first on edge batches (the comb BVH, whose walks
+   overflow the 64-entry stack; axis-parallel rays, zero direction
+   components and zero directions; dead and NaN t_max lanes in every
+   warp; n = 0, 1, 33, one above a block of the kernel and one above 512
+   blocks), then on the same two
    chunks and on the depth-0 fused shadow launch (2 lanes a ray, any
    hit), timed as the others (the plain version once) and bounded by the
    node visits and
@@ -498,7 +507,7 @@ def _median_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-SLEEP_CYCLES = 20_000_000    # a device-side wait of ~10 ms
+SLEEP_CYCLES = 40_000_000    # a device-side wait of ~20 ms
 
 
 def _device_ms(fn, reps: int = 5, queue: int = 20) -> float:
@@ -979,11 +988,44 @@ def _gran_check(tl, diag) -> None:
                f"quant_gran of the {what} keys is not the IEEE quotient")
 
 
+def expansion_windows(tl, streams, diag) -> dict:
+    """The windows the expansion kernel is held on, {name: (ids, rays,
+    t_p)}: pass 0 and pass 1 of the primary, bounce and depth-0 shadow
+    streams, then synthetic.expansion_windows' made-up windows (from
+    SEED) on the bounce rays and their pass-0 window: every parent real
+    (512 real slots, the full row), invalid parents interleaved with
+    valid ones, one live lane a sub-block, blocks of dead and NaN t_hi
+    lanes, and a ray whose far-point box entry lies below its t_hi."""
+    import torch
+    from rfw_tpu_torch.ops import tvisit_intersect as tv
+    from rfw_tpu_torch.ops import visit_intersect as vi
+    from rfw_tpu_torch.utils import synthetic
+    bounds = tv.parent_bounds(tl)
+    t_p = bounds.shape[1]
+    out = {}
+    for name in ("primary", "bounce", "shadow"):
+        rays = vi._pack_rays(*streams[name])
+        keys, counts = vi.sort_candidates(
+            vi.block_entries(rays, bounds, tl["n_cells"]), diag, tv.M_C)
+        for it in (0, 1):
+            out[f"{name} pass {it}"] = (vi.window_candidates(
+                keys, counts, it, diag, tv.M_C, t_p)[0], rays, t_p)
+    ids, rays, _ = out["bounce pass 0"]
+    made = synthetic.expansion_windows(ids.cpu().numpy(), rays.cpu().numpy(),
+                                       t_p, SEED)
+    for name, (i, r) in made.items():
+        out[name] = (torch.from_numpy(i).to(rays.device),
+                     torch.from_numpy(r).to(rays.device), t_p)
+    return out
+
+
 def phase_tvisit_kernel(rs, cfg, ptxas):
     """After the RenderSystem was switched to the tvisit intersector: the
-    quantisation step, then on pass 0 of the primary and bounce chunks
-    the expansion kernel against expand_children_ref and tvisit against
-    tvisit_ref on the kernel's lists."""
+    quantisation step; the expansion kernel against expand_children_ref
+    on every window of ``expansion_windows`` (cids, counts and tnears
+    equal), with its device time there; then on pass 0 of the primary
+    and bounce chunks the kernel's one-launch and plain times and bound,
+    and tvisit against tvisit_ref on the kernel's lists."""
     import torch
     from rfw_tpu_torch.ops import tvisit_intersect as tv
     from rfw_tpu_torch.ops import visit_intersect as vi
@@ -1000,21 +1042,40 @@ def phase_tvisit_kernel(rs, cfg, ptxas):
               f"{p.get('smem')} B static shared memory, "
               f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill "
               f"stores/loads")
+    print(f"phase 3: expand_kernel resident blocks per SM "
+          f"{tv.expand_occupancy()} (cudaOccupancyMaxActiveBlocksPer"
+          f"Multiprocessor)")
     eps = float(cfg.t_epsilon)
     report = {"expand": {"err": 0.0}, "tvisit": {"err": 0.0}}
-    for name in ("primary", "bounce"):
-        o, d, tm = streams[name]
-        rays = vi._pack_rays(o, d, tm)
-        n = rays.shape[1]
-        ids, t_p = pass0_window(tl, rays, diag)
+    windows = expansion_windows(tl, streams, diag)
+    for wname, (ids, rays, t_p) in windows.items():
         args = (ids, rays, bmin32, bmax32, diag, t_p)
         lists = tv.expand_children(*args)
         plain = tv.expand_children_ref(*args)
         torch.cuda.synchronize()
         for what, a, b in zip(("cids", "counts", "tnears"), lists, plain):
-            _check(torch.equal(a, b), f"expansion kernel != plain on {name} "
-                   f"({what}: {float((a != b).float().mean())} differ)")
-        cids, ccounts, ctnears = lists
+            _check(torch.equal(a, b), f"expansion kernel != plain on "
+                   f"{wname} ({what}: {float((a != b).float().mean())} "
+                   f"differ)")
+        live_b = (rays[3] > 0).reshape(-1, vi.BLOCK).sum(1).float()
+        real_b = 4 * (ids < t_p).sum(1).float()
+        full = real_b == 4 * ids.shape[1]
+        pairs_b = live_b * real_b
+        ms_d = _device_ms(lambda: tv.expand_children(*args))
+        full_pairs = float(pairs_b[full].sum() / pairs_b.sum().clamp(min=1))
+        print(f"phase 3: expand {wname:14s} equal (cids, counts, tnears; "
+              f"a 256-ray block: mean real child slots "
+              f"{float(real_b.mean()):.1f}, live lanes "
+              f"{float(live_b.mean()):.1f}; full windows "
+              f"{float(full.float().mean()):.3f} of the blocks, "
+              f"{full_pairs:.3f} of the live pairs; child list mean "
+              f"{float(lists[1].float().mean()):.1f}, max "
+              f"{int(lists[1].max())}), device {ms_d:.4f} ms")
+    for name in ("primary", "bounce"):
+        ids, rays, t_p = windows[f"{name} pass 0"]
+        n = rays.shape[1]
+        args = (ids, rays, bmin32, bmax32, diag, t_p)
+        cids, ccounts, ctnears = tv.expand_children(*args)
         ms_k = _median_ms(lambda: tv.expand_children(*args))
         ms_d = _device_ms(lambda: tv.expand_children(*args))
         ms_p = _median_ms(lambda: tv.expand_children_ref(*args))
@@ -1026,16 +1087,14 @@ def phase_tvisit_kernel(rs, cfg, ptxas):
         xb = _bound(pairs * FLOP_PER_SLAB,
                     4.0 * (7 * n + ids.numel() + 6 * bmin32.shape[0]
                            + 2 * cids.numel() + ccounts.numel()))
-        print(f"phase 3: expand {name:8s} equal (cids, counts, tnears; "
-              f"{cids.shape[0]} sub-blocks, mean child list "
-              f"{float(ccounts.float().mean()):.1f}, max "
-              f"{int(ccounts.max())}; mean real child slots a window "
-              f"{float(real_b.float().mean()):.1f}), kernel {ms_k:.3f} ms "
-              f"(device {ms_d:.4f} ms), plain {ms_p:.3f} ms, bound "
-              f"{xb['bound_ms']:.4f} ms ({xb['bound_by']}, {pairs:.4g} live "
-              f"(ray, child) pairs; {xb['half_ms']:.4f} ms at the unfused "
-              f"half rate), share of bound {xb['bound_ms'] / ms_k:.3f} "
-              f"(device {xb['bound_ms'] / ms_d:.3f})")
+        print(f"phase 3: expand {name:8s} pass 0: {cids.shape[0]} "
+              f"sub-blocks, kernel {ms_k:.3f} ms (device {ms_d:.4f} ms), "
+              f"plain {ms_p:.3f} ms, bound {xb['bound_ms']:.4f} ms "
+              f"({xb['bound_by']}, {pairs:.4g} live (ray, child) pairs; "
+              f"{xb['half_ms']:.4f} ms at the unfused half rate; bytes "
+              f"{xb['bytes']:.4g}, {xb['bytes'] / PEAK_BYTES * 1e3:.4f} ms),"
+              f" share of bound {xb['bound_ms'] / ms_k:.3f} (device "
+              f"{xb['bound_ms'] / ms_d:.3f})")
         if name == "bounce":
             report["expand"].update(ms=ms_k, device_ms=ms_d, plain_ms=ms_p,
                                     **xb)

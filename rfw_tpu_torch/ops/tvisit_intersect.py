@@ -31,6 +31,8 @@ form ``wplanes32_tm`` (``visit_intersect.device_tables``).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import cuda_lib
@@ -160,6 +162,17 @@ def expand_children(ids, rays, bmin32, bmax32, diag, t_p: int):
         cuda_lib.check(err, "expansion kernel")
     launch_counts["expand"] += 1
     return cids, counts, tnears
+
+
+def expand_occupancy(lib=None) -> int:
+    """Resident blocks of the expansion kernel per SM of the current CUDA
+    device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), from
+    ``lib`` or this checkout's kernel library."""
+    lib = lib or cuda_lib.load()
+    blocks = ctypes.c_int(0)
+    cuda_lib.check(lib.rfw_expand_occupancy(ctypes.byref(blocks)),
+                   "expansion occupancy query")
+    return blocks.value
 
 
 # ---------------------------------------------------------------------------

@@ -7,19 +7,20 @@ Run from the repository root. KERNEL is ``enum``, ``expand``,
 each named ``constexpr int NAME = ...;`` takes the given value (for
 example ``enum kEnumCells=1``: one cell a thread; ``tvisit
 kTvisitRays=1``: one ray a thread; ``expand kExpandSlots=2``: two child
-slots a thread; ``traverse kTraverseThreads=64``: blocks of 64
+slots a work item; ``traverse kTraverseThreads=64``: blocks of 64
 threads). The script builds both libraries, builds chip_smoke.py's
 1080p slice scene (switched to the tvisit intersector for ``expand`` and
 ``tvisit``) and takes its phase-3 streams (a primary chunk and a bounce
-chunk; for ``traverse`` also the depth-0 fused shadow launch). On each
+chunk; for ``expand`` and ``traverse`` also the depth-0 fused shadow
+launch). On each
 stream it holds each library's kernel to its plain version (equal; for
 ``expand`` and ``tvisit`` on pass 0's parent window, tvisit on the plain
 expansion's lists, closest hit; ``traverse`` closest and any hit on the
 two chunks, any hit on the shadow launch, bit for bit) and times them in
-alternation, built, variant, variant, built (CUDA events, median of 5
-each; for ``traverse`` the device time of 20 launches queued behind a
-device-side wait, chip_smoke._device_ms). The last line is one JSON
-object with the times and both kernels' ptxas reports.
+alternation, built, variant, variant, built (the device time of 20
+launches queued behind a device-side wait, chip_smoke._device_ms, median
+of 5 each). The last line is one JSON object with the times and both
+kernels' ptxas reports.
 """
 
 from __future__ import annotations
@@ -100,7 +101,8 @@ def _cases(kernel: str, rs, cfg, chip_smoke) -> dict:
                 traverse.traverse_wide_ref(*args, **kw),
                 f"{int((tm > eps).sum())} live lanes")
         return cases
-    for name in ("primary", "bounce"):
+    for name in ("primary", "bounce", "shadow")[:3 if kernel == "expand"
+                                                else 2]:
         o, d, tm = streams[name]
         rays = vi._pack_rays(o, d, tm)
         note = f"{int((tm > 0).sum())} live lanes"
@@ -155,10 +157,9 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as work:
         chip_smoke.build_slice_scene(rs, work)
         rs.synchronize()
-    # traverse's launch is shorter than its wrapper's host work: its
-    # device time, from queued launches
-    timer = (chip_smoke._device_ms if kernel == "traverse"
-             else chip_smoke._median_ms)
+    # a launch can be shorter than its wrapper's host work: the device
+    # time, from queued launches
+    timer = chip_smoke._device_ms
     times = {}
     for name, (run, ref, note) in _cases(kernel, rs, cfg,
                                          chip_smoke).items():

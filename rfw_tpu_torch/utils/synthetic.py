@@ -2,7 +2,8 @@
 random): a soup of small random triangles and a wide BVH deep enough to
 overflow the traversal's 64-entry stack, for checks of the traversal;
 the icosphere and the skinned glTF tube that ``chip_smoke.py``'s scenes
-and the examples' stand-ins for absent assets are built from."""
+and the examples' stand-ins for absent assets are built from; made-up
+parent windows and rays for checks of the child expansion."""
 
 from __future__ import annotations
 
@@ -168,3 +169,45 @@ def write_skinned_gltf(path, seed: int, around: int = 256,
     with open(path, "w") as f:
         json.dump(doc, f)
     return len(faces)
+
+
+def expansion_windows(ids, rays, t_p: int, seed: int) -> dict:
+    """Made-up parent windows for checks of the child expansion, from one
+    real window: ``ids`` (NB, M_C) int32 and the packed rays (8, NB*256)
+    float32 of ``ops/visit_intersect.py::_pack_rays``, numpy. Returns
+    {name: (ids, rays)}, from ``seed``:
+
+    * ``all_real``: every parent valid (random ids below ``t_p``), so
+      every window holds 4*M_C real child slots, the full row;
+    * ``interleaved``: the same with a random half of each window's
+      parents invalid (``t_p``), valid and invalid mixed;
+    * ``one_live``: interleaved parents and one live lane a 128-ray
+      sub-block (t_hi 0 elsewhere);
+    * ``dead_nan``: the real window; every fourth block all dead (t_hi 0,
+      -1 and NaN in turn) and a tenth of the other lanes NaN;
+    * ``far``: interleaved parents and lane 0 of each sub-block on the
+      diagonal, o = (1, 1, 1) and d = (1e8, 1e8, 1e8): its entry into the
+      far-point box that invalid slots hold (3e37 on every axis) is about
+      3e29, below its t_hi of 1e30, so invalid slots enter the lists.
+    """
+    rng = np.random.default_rng(seed)
+    nb, m_c = ids.shape
+    real = rng.integers(0, t_p, (nb, m_c)).astype(np.int32)
+    mixed = np.where(rng.random((nb, m_c)) < 0.5, t_p, real).astype(
+        np.int32)
+    one = rays.copy()
+    one[3] = 0.0
+    sub = one.shape[1] // 128
+    one[3, np.arange(sub) * 128 + rng.integers(0, 128, sub)] = 1e30
+    dead = rays.copy()
+    t_hi = dead[3].reshape(nb, 256)
+    t_hi[::4] = np.resize(np.float32([0.0, -1.0, np.nan]), 256)
+    t_hi[rng.random((nb, 256)) < 0.1] = np.nan
+    far = rays.copy()
+    lane0 = np.arange(sub) * 128
+    far[0:3, lane0] = 1.0
+    far[3, lane0] = 1e30
+    far[4:7, lane0] = 1e8
+    return {"all_real": (real, rays), "interleaved": (mixed, rays),
+            "one_live": (mixed, one), "dead_nan": (ids, dead),
+            "far": (mixed, far)}

@@ -15,6 +15,8 @@ Pallas kernel in interpret mode. Tolerances:
   triangle ties could differ).
 """
 
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +42,7 @@ from rfw_tpu_torch.render import RenderStatus, create_engine, scene_data
 from rfw_tpu_torch.scene import HostMaterial, MaterialList, make_quad
 from rfw_tpu_torch.scene.lights import PointLight, pack_lights
 from rfw_tpu_torch.scene.mesh import build_triangles
+from rfw_tpu_torch.utils import synthetic
 
 CFG = RenderConfig(subcell_tables=True)            # the port's
 J_CFG = j_config.RenderConfig(subcell_tables=True)  # rfw_tpu's
@@ -166,6 +169,100 @@ def test_expand_children_exact(first_window):
     assert p_lists[1][8:].tolist() == [0, 0]           # the dead block
     assert bool((p_lists[0][8:] == 4 * t_p).all())
     assert bool((p_lists[2][8:] == ptv.BIG_T).all())
+
+
+MADE_UP = ("all_real", "interleaved", "one_live", "dead_nan", "far")
+
+
+def _window(first_window, name):
+    """The expansion's arguments for one of synthetic.expansion_windows'
+    made-up windows, built on the first window."""
+    p_args = first_window[4]
+    ids, rays = (torch.from_numpy(x) for x in synthetic.expansion_windows(
+        p_args[0].numpy(), p_args[1].numpy(), p_args[-1], seed=11)[name])
+    return (ids, rays, *p_args[2:])
+
+
+def _closed_only(cids, tnears, j_cids, j_tnears):
+    """The child ids of a port list (cids, tnears) that rfw_tpu's list of
+    the same sub-block leaves out; rfw_tpu's entries must be the port's
+    in the same order."""
+    extra, at = set(), 0
+    for c, t in zip(cids.tolist(), tnears.tolist()):
+        if at < len(j_cids) and (c, t) == (int(j_cids[at]),
+                                           float(j_tnears[at])):
+            at += 1
+        else:
+            extra.add(c)
+    assert at == len(j_cids)
+    return extra
+
+
+def _slab(lo, hi, lanes):
+    """Per-lane slab entry (clamped at 0), exit and t_hi of a box."""
+    inv = ptv.safe_inv_dir(lanes[4:7])
+    t1 = (lo[:, None] - lanes[0:3]) * inv
+    t2 = (hi[:, None] - lanes[0:3]) * inv
+    ent = torch.clamp(torch.minimum(t1, t2).amax(0), min=0.0)
+    return ent, torch.maximum(t1, t2).amin(0), lanes[3]
+
+
+@pytest.mark.parametrize("name", MADE_UP)
+def test_expand_made_up_windows_exact(first_window, name):
+    """chip_smoke.py's made-up windows (all parents real, invalid ones
+    interleaved, one live lane a sub-block, dead and NaN t_hi blocks, a
+    ray reaching the far-point box) through the wrapper,
+    expand_children_ref and rfw_tpu's expansion on the CPU: exactly
+    equal, except on ``far``. There the far lane meets the far-point box
+    that invalid slots hold, and some flat child boxes, with ent == ext,
+    which the port's closed slab test crosses and rfw_tpu's strict
+    ``ent < ext`` does not (``visit_intersect.slab_crossed``): the port
+    lists those slots (invalid ones as child id 4*t_p), and its lists
+    without them are rfw_tpu's, in order."""
+    args = _window(first_window, name)
+    ids, rays, bmin32, bmax32, diag, t_p = args
+    ref = ptv.expand_children_ref(*args)
+    for what, b, c in zip(("cids", "counts", "tnears"), ref,
+                          ptv.expand_children(*args)):
+        assert torch.equal(b, c), what
+    r = rays.numpy()
+    j_lists = [torch.from_numpy(np.array(x)) for x in jtv.expand_children(
+        jnp.asarray(ids.numpy()), jnp.asarray(r[0:3].T.copy()),
+        jnp.asarray(r[4:7].T.copy()), jnp.asarray(r[3]),
+        jnp.asarray(bmin32.numpy()), jnp.asarray(bmax32.numpy()),
+        jnp.asarray(diag.numpy()), t_p)]
+    cids, counts, tnears = ref
+    if name == "far":
+        lo = torch.cat([bmin32, torch.full((1, 3), 3e37)])
+        hi = torch.cat([bmax32, torch.full((1, 3), 3e37)])
+        for row in range(cids.shape[0]):
+            extra = _closed_only(cids[row, :int(counts[row])],
+                                 tnears[row, :int(counts[row])],
+                                 j_lists[0][row, :int(j_lists[1][row])],
+                                 j_lists[2][row, :int(j_lists[1][row])])
+            # every sub-block's lane 0 reaches the far box
+            assert (4 * t_p in extra) == bool((ids[row // 2] >= t_p).any())
+            lanes = rays[:, row * ptv.LANES:(row + 1) * ptv.LANES]
+            for c in extra:
+                ent, ext, t_hi = _slab(lo[c], hi[c], lanes)
+                assert bool(((ent <= ext) & (ent < t_hi)).any()), c
+                assert not bool(((ent < ext) & (ent < t_hi)).any()), c
+    else:
+        for what, a, b in zip(("cids", "counts", "tnears"), j_lists, ref):
+            assert torch.equal(a, b), what
+    live = (rays[3] > 0).reshape(-1, ptv.LANES)
+    assert bool((counts[~live.any(1)] == 0).all())
+    if name == "all_real":
+        assert bool((ids < t_p).all())
+        assert int(counts.max()) > ids.shape[1]     # more than one a parent
+    elif name == "interleaved":
+        assert bool(((ids < t_p).any(1) & (ids >= t_p).any(1)).any())
+    elif name == "one_live":
+        assert live.sum(1).tolist() == [1] * live.shape[0]
+        assert int(counts.max()) > 0
+    elif name == "dead_nan":
+        assert bool(rays[3].isnan().any()) and int(counts.max()) > 0
+        assert not bool(live.reshape(-1, 2, ptv.LANES)[::4].any())
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -386,3 +483,39 @@ def test_quant_gran_is_the_ieee_quotient(soup, qmax):
         diags[:-3])).numpy(), got])
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert (diags * (np.float32(1.0) / np.float32(qmax)) != want).any()
+
+
+def test_expand_times_swaps_and_restores_libraries(monkeypatch, tmp_path):
+    """tools/expand_times.py builds an earlier checkout's kernels from its
+    own csrc/ and leaves this checkout's library state as it was; `using`
+    routes launches to a library inside its block only; the wrapper
+    module's `expand_occupancy` reads the kernel's resident blocks
+    through a pointer."""
+    from rfw_tpu_torch.ops import cuda_lib
+    from rfw_tpu_torch.tools import expand_times
+    seen = {}
+
+    def fake_load():
+        seen["sources"] = cuda_lib.SOURCES
+        cuda_lib.build_log = "Compiling entry function '_Z13expand_kernelv'" \
+            "\nptxas info    : Used 47 registers, 19520 bytes smem"
+        return "parent-lib"
+
+    monkeypatch.setattr(cuda_lib, "load", fake_load)
+    before = (cuda_lib.SOURCES, cuda_lib._lib, cuda_lib.build_log)
+    lib, report = expand_times.parent_library(str(tmp_path))
+    assert lib == "parent-lib" and report["registers"] == 47
+    csrc = tmp_path / "rfw_tpu_torch" / "csrc"
+    assert seen["sources"] == tuple(str(csrc / pathlib.Path(s).name)
+                                    for s in before[0])
+    assert (cuda_lib.SOURCES, cuda_lib._lib, cuda_lib.build_log) == before
+    with expand_times.using("other"):
+        assert cuda_lib._lib == "other"
+    assert cuda_lib._lib == before[1]
+
+    class Lib:
+        def rfw_expand_occupancy(self, blocks):
+            blocks._obj.value = 10
+            return 0
+
+    assert ptv.expand_occupancy(Lib()) == 10

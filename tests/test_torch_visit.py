@@ -375,7 +375,7 @@ def test_dead_lanes_enter_no_cell(soup):
 
 
 @pytest.mark.parametrize("const", ["kEnumCells", "kExpandSlots",
-                                   "kTvisitRays"])
+                                   "kExpandMinBlocks", "kTvisitRays"])
 def test_enum_variant_sources(tmp_path, const):
     """The kernel A/B script's variant copies replace exactly the named
     constant (of the enum, expansion or tvisit kernel), carry the shared
