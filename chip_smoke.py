@@ -113,11 +113,18 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    timed) and 4 spp, within RMSE 2e-3 of the bvh frame; on the chunk-0
    streams (primary and bounce closest hit, shadow any hit) the tlas
    intersector's two kernels held bit for bit on every BLAS group,
-   tlas_premask_kernel against premask_ref (cross, tn_min) and
-   tlas_walk_kernel against walk_group_ref (t, orig, u, v), the spheres'
-   BLAS with culled and live lanes in the bounce and the shadow stream,
-   each kernel's ptxas line, and the bounce chunk's launches timed (one
-   launch, device) beside their plain versions and bounds; one closest
+   tlas_premask_kernel against premask_ref (cross, tn_min, and its list
+   of walking lanes as a sorted set) and tlas_walk_kernel against
+   walk_group_ref (t, orig, u, v), the list's length beside the lanes
+   the plain walk walked (the same set), the spheres' BLAS with culled
+   and live lanes in the bounce and the shadow stream, each kernel's
+   ptxas line and resident blocks per SM, every launch's device time,
+   and the bounce chunk's launches timed (one launch) beside their
+   plain versions and bounds (the walk's also beside the bound of its
+   walks alone); then the same on made-up inputs from the spheres'
+   bounce launch (utils/synthetic.py::tlas_cases: dead lanes inside a
+   box, every lane live, no lane crossing, coincident instances in
+   closest and any hit); one closest
    and one occluded call under torch.cuda.set_sync_debug_mode("error")
    (no host read); its hits against the bvh intersector's (at most 2e-5
    of a stream's lanes apart, relative t < 1e-4); the tlas slice timed
@@ -1627,10 +1634,18 @@ TLAS_APART = 2e-5
 
 
 def _premask_equal(a, b) -> bool:
-    """Two premask results (cross, tn_min) equal, tn_min bit for bit."""
+    """Two premask results (cross, tn_min, lanes, n_lanes) equal: cross,
+    tn_min bit for bit, the walking lanes (the first n_lanes entries of
+    lanes) as a sorted set, the list a permutation of the rays."""
     import torch
+    k, n = int(a[3]), a[2].shape[0]
     return (torch.equal(a[0], b[0])
-            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32)))
+            and torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+            and torch.equal(a[3], b[3])
+            and torch.equal(a[2][:k].sort().values, b[2][:k])
+            and torch.equal(a[2].sort().values,
+                            torch.arange(n, dtype=torch.int32,
+                                         device=a[2].device)))
 
 
 class _TlasLaunches:
@@ -1650,19 +1665,22 @@ class _TlasLaunches:
         launch_p, launch_w = self.orig
         self.groups = {}
 
-        def premask_held(lo, hi, o, d, best_t, ray_chunk=65536):
-            out = launch_p(lo, hi, o, d, best_t, ray_chunk)
+        def premask_held(lo, hi, o, d, best_t, t_epsilon, orig=None,
+                         ray_chunk=65536):
+            out = launch_p(lo, hi, o, d, best_t, t_epsilon, orig, ray_chunk)
             g = self.groups.setdefault(id(lo), len(self.groups))
-            self.premask[(self.label, g)] = ((lo, hi, o, d, best_t), out)
+            self.premask[(self.label, g)] = (
+                (lo, hi, o, d, best_t, t_epsilon, orig), out)
             return out
 
-        def walk_held(rows, o, d, state, order, count, t_epsilon,
-                      any_hit=False):
-            out = launch_w(rows, o, d, state, order, count, t_epsilon,
-                           any_hit)
+        def walk_held(rows, o, d, state, order, count, lanes, n_lanes,
+                      t_epsilon, any_hit=False):
+            out = launch_w(rows, o, d, state, order, count, lanes, n_lanes,
+                           t_epsilon, any_hit)
             g = self.groups[id(rows["inst_bmin"])]
             self.walk[(self.label, g)] = (
-                (rows, o, d, state, order, count, t_epsilon, any_hit), out)
+                (rows, o, d, state, order, count, lanes, n_lanes, t_epsilon,
+                 any_hit), out)
             return out
 
         tlas.premask, tlas.walk_group = premask_held, walk_held
@@ -1675,53 +1693,88 @@ class _TlasLaunches:
 
 def _tlas_walk_bound(args, out, stats) -> dict:
     """tlas_walk_kernel's bound on one launch, from the work its plain
-    version counted: FLOP of the box tests of the touched instances, the
+    version counted for the rays on the premask's list (the rays that
+    walk): FLOP of their box tests of the touched instances, the
     transforms into object space and the walks' box and triangle tests;
-    bytes of every ray in (origin, direction, state: 40 B) and out (16
-    B), the group's rows (boxes, matrix, base: 92 B an instance, and its
+    bytes of every ray's state in (16 B), out (16 B) and list entry (4
+    B), the listed rays' origin and direction (24 B), the list's length,
+    the group's rows (boxes, matrix, base: 92 B an instance, and its
     order entry), the distinct nodes (128 B) and triangles (36 B) the
-    walks read and the prim_order entry of each distinct hit."""
+    walks read and the prim_order entry of each distinct hit.
+    ``walks_ms`` is the bound without the box tests, as if every culling
+    test were free; ``every_ray_ms`` the bound of a thread a ray over
+    every ray (the design before the list): the box tests of every ray
+    and 56 B of every ray in and out, the fixed yardstick of the two
+    designs."""
     import torch
-    rows, o, _, state, _, _, _, _ = args
+    rows, o, _, state = args[:4]
     n, k = o.shape[0], rows["inst_base"].shape[0]
+    listed = int(stats["walked"].sum())
     changed = out[1] != state[1]
     hits = int(torch.unique(out[1][changed]).numel())
-    flop = (stats["box_tests"] * float(FLOP_PER_BOX)
-            + stats["walks"] * float(FLOP_PER_XFORM)
-            + stats.get("visits", 0) * 4.0 * FLOP_PER_BOX
-            + stats.get("tests", 0) * float(FLOP_PER_MT))
+    walks_flop = (stats["walks"] * float(FLOP_PER_XFORM)
+                  + stats.get("visits", 0) * 4.0 * FLOP_PER_BOX
+                  + stats.get("tests", 0) * float(FLOP_PER_MT))
     nodes = int(stats["node_seen"].sum()) if "node_seen" in stats else 0
     tris = int(stats["tri_seen"].sum()) if "tri_seen" in stats else 0
-    nbytes = (56.0 * n + 96.0 * k + 4.0 + 128.0 * nodes + 36.0 * tris
-              + 4.0 * hits)
-    return {**_bound(flop, nbytes), "nodes": nodes, "tris": tris}
+    shared = 96.0 * k + 4.0 + 128.0 * nodes + 36.0 * tris + 4.0 * hits
+    nbytes = 36.0 * n + 24.0 * listed + 4.0 + shared
+    every_ray = _bound(stats["box_tests_every_ray"] * float(FLOP_PER_BOX)
+                       + walks_flop, 56.0 * n + shared)
+    return {**_bound(stats["box_tests"] * float(FLOP_PER_BOX) + walks_flop,
+                     nbytes),
+            "nodes": nodes, "tris": tris,
+            "walks_ms": _bound(walks_flop, nbytes)["bound_ms"],
+            "every_ray_ms": every_ray["bound_ms"]}
 
 
-def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
-    """Each held premask and walk launch against its plain version,
-    bit for bit (cross and tn_min; t, orig, u and v), with the walk's
-    lanes that walked (live) and those every box culled; the launches of
-    the ``timed`` stream timed (one launch, device) beside their plain
-    version and bound. Returns the report of each kernel on the timed
-    stream's spheres group."""
+def _lanes_walked(lanes, n_lanes, walked) -> bool:
+    """The kernel's list of walking lanes (its first ``n_lanes`` entries
+    of ``lanes``) as a sorted set equals the rays the plain walk walked
+    (``walk_group_ref``'s ``stats["walked"]``)."""
     import torch
+    k = int(n_lanes)
+    return torch.equal(lanes[:k].sort().values.long(),
+                       walked.nonzero()[:, 0])
+
+
+def _tlas_ptxas() -> None:
+    """The two tlas kernels' ptxas lines (phase 2 fails the run on a
+    spill) and resident blocks per SM."""
     from rfw_tpu_torch.bvh import tlas
     from rfw_tpu_torch.ops import cuda_lib
     ptxas = cuda_lib.ptxas_report(cuda_lib.build_log)
+    blocks = tlas.occupancy()
     for k in TLAS_KERNELS:
         p = ptxas.get(f"{k}_kernel", {})
         print(f"phase 10: {k}_kernel ptxas: {p.get('registers')} registers, "
               f"{p.get('smem')} B shared memory, {p.get('stack')} B stack "
               f"frame, {p.get('spill_stores')}/{p.get('spill_loads')} B "
-              f"spill stores/loads")
+              f"spill stores/loads; {blocks[k]} resident blocks per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+
+
+def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
+    """Each held premask and walk launch against its plain version, bit
+    for bit (cross, tn_min and the list of walking lanes as a sorted set;
+    t, orig, u and v), the list against the lanes the plain walk walked,
+    with the walk's lanes that walked (live) and those every box culled,
+    and each launch's device time; the launches of the ``timed`` stream
+    also timed one launch at a time beside their plain version and
+    bound. Returns the report of each kernel on the timed stream's
+    spheres group."""
+    import torch
+    from rfw_tpu_torch.bvh import tlas
+    _tlas_ptxas()
     report = {"tlas_premask": {"err": 0.0}, "tlas_walk": {"err": 0.0}}
     culled_live = set()
     for (name, g), (args, out_k) in sorted(held.premask.items()):
-        lo, hi, o, d, best_t = args
+        lo, hi, o, d, best_t, t_eps, orig = args
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out_p = tlas.premask_ref(lo, hi, o, tlas.safe_inv_box_dir(d), best_t)
+        out_p = tlas.premask_ref(lo, hi, o, tlas.safe_inv_box_dir(d), best_t,
+                                 t_eps, orig)
         b.record()
         torch.cuda.synchronize()
         _check(_premask_equal(out_k, out_p),
@@ -1731,20 +1784,27 @@ def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
             report["tlas_premask"]["err"],
             float((out_k[1] - out_p[1]).abs().max()))
         n, k = o.shape[0], lo.shape[0]
+
+        def kernel():
+            return tlas.premask(lo, hi, o, d, best_t, t_eps, orig)
+
+        ms_d = _device_ms(kernel)
         line = (f"phase 10: tlas_premask vs premask_ref on the {name} launch "
                 f"of BLAS {g} ({k} instances, {n} lanes): "
-                f"{int(out_k[0].sum())} crossed; equal bit for bit")
+                f"{int(out_k[0].sum())} crossed, {int(out_k[3])} lanes "
+                f"listed (plain {int(out_p[3])}); equal bit for bit, the "
+                f"list as a sorted set; device {ms_d:.4f} ms")
         if name == timed:
             ms_p = a.elapsed_time(b)
-
-            def kernel():
-                return tlas.premask(lo, hi, o, d, best_t)
-
-            ms_k, ms_d = _median_ms(kernel), _device_ms(kernel)
+            ms_k = _median_ms(kernel)
+            # bytes: a ray's origin, direction, best t (and any hit's
+            # orig) in and its list entry out, an instance's box in and
+            # cross and tn_min out, the list's two ends
             pb = _bound(float(n) * k * FLOP_PER_BOX + 3.0 * n,
-                        28.0 * n + 32.0 * k)
-            line += (f"; kernel {ms_k:.4f} ms (one launch, median of 5; "
-                     f"device {ms_d:.4f} ms), plain {ms_p:.1f} ms (one run), "
+                        (32.0 if orig is None else 36.0) * n + 32.0 * k
+                        + 8.0)
+            line += (f"; kernel {ms_k:.4f} ms (one launch, median of 5), "
+                     f"plain {ms_p:.1f} ms (one run), "
                      f"bound {pb['bound_ms']:.5f} ms ({pb['bound_by']}, "
                      f"{pb['flop']:.4g} FLOP, {pb['bytes']:.0f} B), share "
                      f"of bound {pb['bound_ms'] / ms_k:.4f} (device "
@@ -1754,7 +1814,7 @@ def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
                                               plain_ms=ms_p, **pb)
         print(line)
     for (name, g), (args, out_k) in sorted(held.walk.items()):
-        rows, o, d, state, order, count, t_eps, any_hit = args
+        rows, o, d, state, order, count, lanes, n_lanes, t_eps, any_hit = args
         stats = {}
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -1766,6 +1826,9 @@ def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
         _check(_bits_equal(out_k, out_p),
                f"tlas walk kernel != walk_group_ref on the {name} launch of "
                f"BLAS {g}")
+        _check(_lanes_walked(lanes, n_lanes, stats["walked"]),
+               f"tlas premask's list != the lanes walk_group_ref walked on "
+               f"the {name} launch of BLAS {g}")
         report["tlas_walk"]["err"] = max(
             report["tlas_walk"]["err"],
             float((out_k[0] - out_p[0]).abs().max()))
@@ -1773,31 +1836,38 @@ def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
         live = int(stats["walked"].sum())
         if 0 < live < n:
             culled_live.add((name, g))
+
+        def kernel():
+            return tlas.walk_group(rows, o, d, state, order, count, lanes,
+                                   n_lanes, t_eps, any_hit)
+
+        ms_d = _device_ms(kernel)
         line = (f"phase 10: tlas_walk vs walk_group_ref on the {name} launch "
                 f"of BLAS {g} ({rows['tri_table'].shape[0]} triangles, "
                 f"{'any' if any_hit else 'closest'} hit): {n} lanes, "
-                f"{int(count)} touched instances, {live} lanes walked, "
-                f"{n - live} culled by every box, {stats['walks']} walks, "
+                f"{int(count)} touched instances, {int(n_lanes)} lanes "
+                f"listed, {live} lanes walked in the plain version (the "
+                f"same set), {n - live} culled by every box, "
+                f"{stats['walks']} walks, "
                 f"{int((out_k[1] != state[1]).sum())} lanes with a new hit; "
-                f"equal bit for bit")
+                f"equal bit for bit; device {ms_d:.4f} ms")
         if name == timed:
             ms_p = a.elapsed_time(b)
-
-            def kernel():
-                return tlas.walk_group(rows, o, d, state, order, count,
-                                       t_eps, any_hit)
-
-            ms_k, ms_d = _median_ms(kernel), _device_ms(kernel)
+            ms_k = _median_ms(kernel)
             wb = _tlas_walk_bound(args, out_k, stats)
-            line += (f"; kernel {ms_k:.4f} ms (one launch, median of 5; "
-                     f"device {ms_d:.4f} ms), plain {ms_p:.1f} ms (one run), "
+            line += (f"; kernel {ms_k:.4f} ms (one launch, median of 5), "
+                     f"plain {ms_p:.1f} ms (one run), "
                      f"bound {wb['bound_ms']:.5f} ms ({wb['bound_by']}, "
-                     f"{wb['bytes']:.0f} B, {stats['box_tests']} box tests, "
+                     f"{wb['bytes']:.0f} B, {stats['box_tests']} box tests "
+                     f"of the listed rays, "
                      f"{stats['walks']} transforms, "
                      f"{stats.get('visits', 0)} node visits of "
                      f"{wb['nodes']} distinct nodes, {stats.get('tests', 0)} "
                      f"triangle tests of {wb['tris']} distinct triangles; "
-                     f"{wb['half_ms']:.5f} ms at the unfused half rate), "
+                     f"{wb['half_ms']:.5f} ms at the unfused half rate; "
+                     f"the walks alone {wb['walks_ms']:.5f} ms; a thread "
+                     f"a ray over every ray, {stats['box_tests_every_ray']} "
+                     f"box tests, {wb['every_ray_ms']:.5f} ms), "
                      f"share of bound {wb['bound_ms'] / ms_k:.4f} (device "
                      f"{wb['bound_ms'] / ms_d:.4f}); longest walk "
                      f"{stats.get('longest', 0)} nodes")
@@ -1816,6 +1886,118 @@ def _tlas_kernels(held, streams, spheres, eps, timed) -> dict:
            f"no tlas walk launch with culled and live lanes on the spheres' "
            f"BLAS in the bounce or the shadow stream: {sorted(culled_live)}")
     return report
+
+
+def _tlas_made_up(held, spheres, eps) -> None:
+    """The two tlas kernels on made-up inputs from the spheres' bounce
+    launch (``utils/synthetic.py::tlas_cases``): each case's premask,
+    visit order and walk through the kernels against premask_ref and
+    walk_group_ref, bit for bit, the list against the lanes the plain
+    walk walked, and the case's own property: every box crossed at entry
+    0 and no dead lane listed (dead lanes inside boxes), every lane
+    listed (all live), none listed and no box crossed (none crossing), no
+    hit on the coincident twin (closest and any hit); each kernel's
+    device time."""
+    import torch
+    from rfw_tpu_torch.bvh import tlas
+    from rfw_tpu_torch.utils import synthetic
+    args, _ = held.walk[("bounce", spheres)]
+    rows, o, d, state = args[:4]
+    dev = o.device
+    cases = synthetic.tlas_cases(
+        *(x.cpu().numpy() for x in (rows["inst_bmin"], rows["inst_bmax"], o,
+                                    d, state[0])), seed=SEED)
+    n, k = o.shape[0], rows["inst_base"].shape[0]
+    for name, (o_n, d_n, t_n, any_hit, twin) in cases.items():
+        # a dead lane's direction may be anything; every lane of all_live
+        # needs a finite one
+        d_n = np.where(np.isfinite(d_n).all(-1, keepdims=True), d_n,
+                       np.float32([0.0, 0.0, 1.0]))
+        o2, d2, t2 = (torch.from_numpy(x).to(dev) for x in (o_n, d_n, t_n))
+        rows2 = dict(rows)
+        if twin:
+            for key in ("inst_inv", "inst_bmin", "inst_bmax"):
+                rows2[key] = rows[key].clone()
+                rows2[key][1] = rows[key][0]
+        lo, hi = rows2["inst_bmin"], rows2["inst_bmax"]
+        st = tlas.start_state(o2, t2)
+        orig = st[1] if any_hit else None
+
+        def premask():
+            return tlas.premask(lo, hi, o2, d2, st[0], eps, orig)
+
+        pm = premask()
+        order, count = tlas.visit_order(pm[0], pm[1])
+
+        def walk():
+            return tlas.walk_group(rows2, o2, d2, st, order, count, pm[2],
+                                   pm[3], eps, any_hit)
+
+        out = walk()
+        pm_p = tlas.premask_ref(lo, hi, o2, tlas.safe_inv_box_dir(d2), st[0],
+                                eps, orig)
+        stats = {}
+        out_p = tlas.walk_group_ref(rows2, o2, d2, st, order, count, eps,
+                                    any_hit, stats=stats)
+        torch.cuda.synchronize()
+        _check(_premask_equal(pm, pm_p),
+               f"tlas premask kernel != premask_ref on made-up {name}")
+        _check(_bits_equal(out, out_p),
+               f"tlas walk kernel != walk_group_ref on made-up {name}")
+        _check(_lanes_walked(pm[2], pm[3], stats["walked"]),
+               f"tlas premask's list != the walked lanes on made-up {name}")
+        listed, crossed = int(pm[3]), int(pm[0].sum())
+        if name == "dead_inside":
+            dead = (t2 == 0).nonzero()[:, 0]
+            ok = (crossed == k and bool((pm[1] == 0).all())
+                  and not torch.isin(pm[2][:listed].long(), dead).any())
+        elif name == "all_live":
+            ok = listed == n
+        elif name == "none_cross":
+            ok = listed == 0 and crossed == 0
+        else:
+            base = int(rows2["inst_base"][1])
+            n_tri = rows2["tri_table"].shape[0]
+            ok = not bool(((out[1] >= base) & (out[1] < base + n_tri)).any())
+        _check(ok, f"made-up {name}: its property does not hold (listed "
+               f"{listed}, crossed {crossed})")
+        hits = int((out[1] >= 0).sum())
+        print(f"phase 10: made-up {name} on the spheres' bounce rays "
+              f"({'any' if any_hit else 'closest'} hit): {crossed} of {k} "
+              f"instances crossed, {listed} of {n} lanes listed, "
+              f"{int(stats['walked'].sum())} walked in the plain version, "
+              f"{stats['walks']} walks, {hits} lanes hit; premask and walk "
+              f"equal their plain versions bit for bit; device premask "
+              f"{_device_ms(premask):.4f} ms, walk {_device_ms(walk):.4f} ms")
+
+
+def tlas_launches(rs):
+    """The tlas intersector's calls on the main path's chunk-0 streams
+    (``_streams``: primary and bounce closest hit, the depth-0 shadow
+    launch any hit) with the two tlas kernels' launches caught
+    (``_TlasLaunches``); the launch counts are reset just before those
+    calls. Returns (scene, streams, run, held, results, spheres):
+    ``run(name, o, d, t_max)`` makes a stream's call, and spheres is the
+    BLAS group with the most instances."""
+    from rfw_tpu_torch.ops import cuda_lib
+    from rfw_tpu_torch.render.intersectors import make_intersector
+    scene, streams, _ = _streams(rs)
+    tlas = make_intersector("tlas", rs.config)
+    blas = scene["tlas"]["blas"]
+    spheres = max(range(len(blas)), key=lambda i: blas[i]["inst_base"]
+                  .shape[0])
+
+    def run(name, o, d, tm):
+        return (tlas.occluded(scene, o, d, tm) if name == "shadow"
+                else tlas.closest(scene, o, d, tm))
+
+    results = {}
+    cuda_lib.reset_launch_counts()
+    with _TlasLaunches() as held:
+        for name, (o, d, tm) in streams.items():
+            held.label = name
+            results[name] = run(name, o, d, tm)
+    return scene, streams, run, held, results, spheres
 
 
 def _tlas_against_bvh(rs) -> dict:
@@ -1837,23 +2019,10 @@ def _tlas_against_bvh(rs) -> dict:
     import torch
     from rfw_tpu_torch.ops import cuda_lib
     from rfw_tpu_torch.render.intersectors import make_intersector
-    scene, streams, _ = _streams(rs)
     cfg = rs.config
-    tlas, bvh = make_intersector("tlas", cfg), make_intersector("bvh", cfg)
+    bvh = make_intersector("bvh", cfg)
+    scene, streams, run, held, results, spheres = tlas_launches(rs)
     blas = scene["tlas"]["blas"]
-    spheres = max(range(len(blas)), key=lambda i: blas[i]["inst_base"]
-                  .shape[0])
-
-    def run(name, o, d, tm):
-        return (tlas.occluded(scene, o, d, tm) if name == "shadow"
-                else tlas.closest(scene, o, d, tm))
-
-    results = {}
-    cuda_lib.reset_launch_counts()
-    with _TlasLaunches() as held:
-        for name, (o, d, tm) in streams.items():
-            held.label = name
-            results[name] = run(name, o, d, tm)
     counts = dict(cuda_lib.launch_counts)
     want = {k: (len(blas) * len(streams)
                 if k in ("tlas_premask", "tlas_walk") else 0) for k in counts}
@@ -1861,6 +2030,7 @@ def _tlas_against_bvh(rs) -> dict:
            f"{counts}, expected {want}")
     report = _tlas_kernels(held, streams, spheres, float(cfg.t_epsilon),
                            "bounce")
+    _tlas_made_up(held, spheres, float(cfg.t_epsilon))
 
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -2646,17 +2816,20 @@ class _Held:
                   gran.k_size, eps, any_hit), out)
             return out
 
-        def premask_held(lo, hi, o, d, best_t, ray_chunk=65536):
-            out = launch_p(lo, hi, o, d, best_t, ray_chunk)
-            keep("tlas_premask", o.shape[0], (lo, hi, o, d, best_t), out)
+        def premask_held(lo, hi, o, d, best_t, t_epsilon, orig=None,
+                         ray_chunk=65536):
+            out = launch_p(lo, hi, o, d, best_t, t_epsilon, orig, ray_chunk)
+            keep("tlas_premask", o.shape[0],
+                 (lo, hi, o, d, best_t, t_epsilon, orig), out)
             return out
 
-        def walk_held(rows, o, d, state, order, count, t_epsilon,
-                      any_hit=False):
-            out = launch_w(rows, o, d, state, order, count, t_epsilon,
-                           any_hit)
+        def walk_held(rows, o, d, state, order, count, lanes, n_lanes,
+                      t_epsilon, any_hit=False):
+            out = launch_w(rows, o, d, state, order, count, lanes, n_lanes,
+                           t_epsilon, any_hit)
             keep("tlas_walk", o.shape[0],
-                 (rows, o, d, state, order, count, t_epsilon, any_hit), out)
+                 (rows, o, d, state, order, count, lanes, n_lanes,
+                  t_epsilon, any_hit), out)
             return out
 
         traverse.traverse_wide = traverse_held
@@ -2690,16 +2863,26 @@ class _Held:
                 out_k, out_p = (out_k,), (vi.block_entries_ref(*args),)
                 lanes, mode = args[0].shape[1], f"{args[1].shape[1]} cells"
             elif kernel == "tlas_premask":
-                lo, hi, o, d, best_t = args
+                lo, hi, o, d, best_t, t_eps, orig = args
                 out_p = tlas.premask_ref(lo, hi, o, tlas.safe_inv_box_dir(d),
-                                         best_t)
-                equal, t_at = _premask_equal, 1   # (cross, tn_min)
-                lanes, mode = o.shape[0], f"{lo.shape[0]} instances"
+                                         best_t, t_eps, orig)
+                equal, t_at = _premask_equal, 1   # (cross, tn_min, ...)
+                lanes = o.shape[0]
+                mode = (f"{lo.shape[0]} instances, {int(out_k[3])} lanes "
+                        f"listed, the list as a sorted set")
             elif kernel == "tlas_walk":
-                out_p = tlas.walk_group_ref(*args)
-                lanes = args[1].shape[0]
-                mode = (f"{int(args[5])} of {args[4].shape[0]} instances "
-                        f"touched, {'any hit' if args[-1] else 'closest'}")
+                rows, o, d, state, order, count, lst, n_lst, t_eps, any_hit \
+                    = args
+                stats = {}
+                out_p = tlas.walk_group_ref(rows, o, d, state, order, count,
+                                            t_eps, any_hit, stats=stats)
+                _check(_lanes_walked(lst, n_lst, stats["walked"]),
+                       f"{label}: the tlas list != the lanes the plain walk "
+                       f"walked")
+                lanes = o.shape[0]
+                mode = (f"{int(count)} of {order.shape[0]} instances "
+                        f"touched, {int(n_lst)} lanes listed and walked, "
+                        f"{'any hit' if any_hit else 'closest'}")
             else:
                 out_p = vi.visit_ref(*args)
                 lanes = args[0].shape[1]

@@ -10,19 +10,21 @@ those (``TLAS.refit``); no BLAS is rebuilt.
 ``walk`` takes the tables grouped per BLAS (one dict a BLAS: its node
 and triangle tables and its instances' rows, ``group_instances``). Per
 BLAS a premask slab-tests every (ray, instance) pair and keeps the
-instances some ray crosses, front to back by their nearest entry; each
-ray then walks those of them whose world box it enters below its best t,
-in object space (the direction left unnormalised, so object t equals
-world t). On CUDA tensors that is two hand-written kernels a BLAS
-(``csrc/tlas_kernel.cu``: ``premask`` and ``walk_group``, with the visit
-order sorted on the device between them), and nothing is read to the
-host; on CPU tensors ``walk_ref``, which reads the touched instances and
-walks each with the traversal's plain version. ``premask_ref`` and
-``walk_group_ref`` are the two kernels' plain versions.
+instances some ray crosses, front to back by their nearest entry, and
+lists the rays that cross any box; each listed ray then walks those
+instances whose world box it enters below its best t, in object space
+(the direction left unnormalised, so object t equals world t). On CUDA
+tensors that is two hand-written kernels a BLAS (``csrc/tlas_kernel.cu``:
+``premask`` and ``walk_group``, with the visit order sorted on the
+device between them), and nothing is read to the host; on CPU tensors
+``walk_ref``, which reads the touched instances and walks each with the
+traversal's plain version. ``premask_ref`` and ``walk_group_ref`` are
+the two kernels' plain versions.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -212,25 +214,42 @@ def to_object(inv, o, d):
     return o_obj, d_obj
 
 
-def premask_ref(lo, hi, o, inv_d, best_t, ray_chunk: int = 65536):
+def premask_ref(lo, hi, o, inv_d, best_t, t_epsilon: float, orig=None,
+                ray_chunk: int = 65536):
     """The premask of one BLAS's instances, boxes ``lo``, ``hi`` (k, 3),
     over rays ``o`` (R, 3) with the box reciprocals ``inv_d``
     (``safe_inv_box_dir``): per instance, does any ray cross its box
     (``box_hit`` below the ray's ``best_t``), and the least max(tnear, 0)
     over the crossing rays, BIG_T where none does; ``ray_chunk`` rays a
     slab pass. ``+ 0.0`` makes a -0.0 entry +0.0, as the kernel's bits
-    order it. Returns (cross (k,) bool, tn_min (k,) float32)."""
+    order it. Per ray, whether it walks: it crosses some box, its
+    ``best_t`` exceeds ``t_epsilon`` and, where ``orig`` (the state's
+    hits, given for any hit) is given, it has no hit yet (``orig < 0``).
+    A ray that crosses a box with a dead bound (``best_t`` 0, its origin
+    inside the box) counts in ``cross`` and ``tn_min`` and does not walk.
+
+    Returns (cross (k,) bool, tn_min (k,) float32, lanes (R,) int32,
+    n_lanes (1,) int32): ``lanes`` holds the walking rays, ascending, in
+    its first ``n_lanes`` entries and the others, ascending, after them.
+    """
     n = o.shape[0]
     cross = torch.zeros(lo.shape[0], dtype=torch.bool, device=o.device)
     tn_min = torch.full((lo.shape[0],), BIG_T, device=o.device)
+    walks = torch.zeros(n, dtype=torch.bool, device=o.device)
     for s in range(0, n, ray_chunk):
         sl = slice(s, s + ray_chunk)
         hit, tn = box_hit(lo, hi, o[sl, None], inv_d[sl, None],
                           best_t[sl, None])
         cross |= hit.any(0)
+        walks[sl] = hit.any(1)
         tn_min = torch.minimum(tn_min, torch.where(
             hit, torch.clamp(tn, min=0.0) + 0.0, BIG_T).amin(0))
-    return cross, tn_min
+    walks &= best_t > t_epsilon
+    if orig is not None:
+        walks &= orig < 0
+    lanes = torch.cat([walks.nonzero()[:, 0], (~walks).nonzero()[:, 0]])
+    return (cross, tn_min, lanes.int(),
+            walks.sum(dtype=torch.int32).reshape(1))
 
 
 def visit_order(cross, tn_min):
@@ -269,8 +288,8 @@ def walk_ref(tables: dict, o, d, t_max, t_epsilon: float,
     inv_d = safe_inv_box_dir(d)
     for blas in tables["blas"]:
         lo_all, hi_all = blas["inst_bmin"], blas["inst_bmax"]
-        cross, tn_min = premask_ref(lo_all, hi_all, o, inv_d, best_t,
-                                    ray_chunk)
+        cross, tn_min, _, _ = premask_ref(lo_all, hi_all, o, inv_d, best_t,
+                                          t_epsilon, ray_chunk=ray_chunk)
         order, count = visit_order(cross, tn_min)
         # one read: the touched instances lead the order
         touched, *ids = torch.cat([count, order]).tolist()
@@ -302,15 +321,20 @@ def walk_group_ref(rows: dict, o, d, state, order, count, t_epsilon: float,
     ``count`` (read on the device, as the kernel reads it), each ray
     walking instance ``order[q]`` where its box is hit below the ray's
     best t (any hit: only while the ray has no hit), in object space
-    with ``traverse_wide_ref``. Returns the new state. ``stats``, when
+    with ``traverse_wide_ref``. Every ray takes part: the kernel's list
+    of lanes (``premask``) is not read, so the rays it leaves out must
+    come out as they went in. Returns the new state. ``stats``, when
     given, receives ``traverse_wide_ref``'s counts over the walks
-    (visits, tests, node_seen, tri_seen, longest) and ``box_tests`` (the
-    (ray, instance) box tests the kernel runs), ``walks`` (the (ray,
+    (visits, tests, node_seen, tri_seen, longest), ``box_tests`` (the
+    (ray, instance) box tests of the rays that walk, the ones the kernel
+    runs over the list), ``box_tests_every_ray`` (those of every ray, as
+    a thread a ray over all of them tests), ``walks`` (the (ray,
     instance) walks, each a transform) and ``walked`` (R,), the rays
     that walked at least once."""
     best_t, best_orig, best_u, best_v = state
     inv_d = safe_inv_box_dir(d)
     walked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    ray_tests = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
     for q in range(order.shape[0]):
         i = order[q].long()
         tested = torch.broadcast_to(count > q, best_orig.shape)
@@ -327,8 +351,7 @@ def walk_group_ref(rows: dict, o, d, state, order, count, t_epsilon: float,
             any_hit=any_hit, stats=stats)
         if stats is not None:
             walks = t_max > t_epsilon
-            stats["box_tests"] = stats.get("box_tests", 0) + int(
-                tested.sum())
+            ray_tests += tested
             stats["walks"] = stats.get("walks", 0) + int(walks.sum())
             walked |= walks
         better = (prim_i >= 0) & (t_i < best_t)
@@ -339,6 +362,10 @@ def walk_group_ref(rows: dict, o, d, state, order, count, t_epsilon: float,
         best_u = torch.where(better, u_i, best_u)
         best_v = torch.where(better, v_i, best_v)
     if stats is not None:
+        stats["box_tests"] = stats.get("box_tests", 0) + int(
+            ray_tests[walked].sum())
+        stats["box_tests_every_ray"] = stats.get(
+            "box_tests_every_ray", 0) + int(ray_tests.sum())
         stats["walked"] = stats.get("walked", walked) | walked
     return best_t, best_orig, best_u, best_v
 
@@ -380,14 +407,20 @@ def _rays(o, d):
     return n, o.contiguous(), d.contiguous()
 
 
-def premask(lo, hi, o, d, best_t, ray_chunk: int = 65536):
+def premask(lo, hi, o, d, best_t, t_epsilon: float, orig=None,
+            ray_chunk: int = 65536):
     """``premask_ref`` of the boxes ``lo``, ``hi`` (k, 3) over rays (R,
-    3) below ``best_t`` (R,): ``tlas_premask_kernel`` on CUDA tensors
-    (one thread a ray over every box; ``ray_chunk`` is not needed), the
-    plain version on CPU tensors. Returns (cross (k,) bool, tn_min (k,)
-    float32)."""
+    3) below ``best_t`` (R,), with ``orig`` (R,) int32 for any hit:
+    ``tlas_premask_kernel`` on CUDA tensors (one thread a ray over every
+    box; ``ray_chunk`` is not needed), the plain version on CPU tensors.
+    Returns (cross (k,) bool, tn_min (k,) float32, lanes (R,) int32,
+    n_lanes (1,) int32). The kernel's ``lanes`` is a permutation of the
+    rays, the walking ones in its first ``n_lanes`` entries, each part in
+    an order that may change from run to run; ``n_lanes`` stays on the
+    device."""
     if not cuda_lib.kernel_device(o, "tlas"):
-        return premask_ref(lo, hi, o, safe_inv_box_dir(d), best_t, ray_chunk)
+        return premask_ref(lo, hi, o, safe_inv_box_dir(d), best_t, t_epsilon,
+                           orig, ray_chunk)
     dev = o.device
     n, o, d = _rays(o, d)
     k = lo.shape[0]
@@ -398,25 +431,36 @@ def premask(lo, hi, o, d, best_t, ray_chunk: int = 65536):
                  directions=(d, torch.float32),
                  best_t=(best_t, torch.float32),
                  inst_bmin=(lo, torch.float32), inst_bmax=(hi, torch.float32))
-    cross = torch.zeros(k, dtype=torch.int32, device=dev)
+    if orig is not None:
+        _check_shape("orig", orig, (n,))
+        check_inputs(dev, orig=(orig, torch.int32))
+    # cross (k,) and the two ends of the list, zeroed by one fill
+    zeroed = torch.zeros(k + 2, dtype=torch.int32, device=dev)
+    cross, ends = zeroed[:k], zeroed[k:]
     tn_min = torch.full((k,), BIG_T, device=dev)
-    if n == 0 or k == 0:
-        return cross.bool(), tn_min
+    lanes = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return cross.bool(), tn_min, lanes, ends[:1]
     with cuda_lib.launch(dev) as (lib, stream):
-        err = lib.rfw_tlas_premask(ptr(o), ptr(d), ptr(best_t), n, ptr(lo),
-                                   ptr(hi), k, ptr(cross), ptr(tn_min),
-                                   stream)
+        err = lib.rfw_tlas_premask(
+            ptr(o), ptr(d), ptr(best_t),
+            None if orig is None else ptr(orig), n, float(t_epsilon),
+            ptr(lo), ptr(hi), k, ptr(cross), ptr(tn_min), ptr(lanes),
+            ptr(ends), stream)
         cuda_lib.check(err, "tlas premask kernel")
     launch_counts["tlas_premask"] += 1
-    return cross.bool(), tn_min
+    return cross.bool(), tn_min, lanes, ends[:1]
 
 
-def walk_group(rows: dict, o, d, state, order, count, t_epsilon: float,
-               any_hit: bool = False):
+def walk_group(rows: dict, o, d, state, order, count, lanes, n_lanes,
+               t_epsilon: float, any_hit: bool = False):
     """``walk_group_ref``'s result: ``tlas_walk_kernel`` on CUDA tensors
-    (one thread a ray over the first ``count`` entries of ``order``, both
-    read on the device), the plain version on CPU tensors. ``state`` is
-    (t, orig, u, v), each (R,); returns the new one."""
+    (thread j takes ray ``lanes[j]``: below ``n_lanes`` it walks the first
+    ``count`` entries of ``order``, all three read on the device, past it
+    it copies the ray's state), the plain version on CPU tensors, which
+    walks every ray. ``state`` is (t, orig, u, v), each (R,); ``lanes``
+    and ``n_lanes`` are ``premask``'s of the same rays and state.
+    Returns the new state."""
     if not cuda_lib.kernel_device(o, "tlas"):
         return walk_group_ref(rows, o, d, state, order, count, t_epsilon,
                               any_hit)
@@ -425,14 +469,16 @@ def walk_group(rows: dict, o, d, state, order, count, t_epsilon: float,
     bufs = group_buffers(rows, dev)
     t_in, orig_in, u_in, v_in = (x.contiguous() for x in state)
     for name, x in (("t", t_in), ("orig", orig_in), ("u", u_in),
-                    ("v", v_in)):
+                    ("v", v_in), ("lanes", lanes)):
         _check_shape(name, x, (n,))
     _check_shape("order", order, (rows["inst_base"].shape[0],))
     _check_shape("count", count, (1,))
+    _check_shape("n_lanes", n_lanes, (1,))
     check_inputs(dev, origins=(o, torch.float32),
                  directions=(d, torch.float32), t=(t_in, torch.float32),
                  orig=(orig_in, torch.int32), u=(u_in, torch.float32),
-                 v=(v_in, torch.float32), order=(order, torch.int32),
+                 v=(v_in, torch.float32), lanes=(lanes, torch.int32),
+                 n_lanes=(n_lanes, torch.int32), order=(order, torch.int32),
                  count=(count, torch.int32))
     t = torch.empty(n, dtype=torch.float32, device=dev)
     orig = torch.empty(n, dtype=torch.int32, device=dev)
@@ -443,27 +489,42 @@ def walk_group(rows: dict, o, d, state, order, count, t_epsilon: float,
     with cuda_lib.launch(dev) as (lib, stream):
         err = lib.rfw_tlas_walk(
             ptr(o), ptr(d), n, ptr(t_in), ptr(orig_in), ptr(u_in), ptr(v_in),
-            ptr(order), ptr(count), *(ptr(b) for b in bufs),
-            traverse.LEAF_SIZE, float(t_epsilon), int(any_hit), ptr(t),
-            ptr(orig), ptr(u), ptr(v), stream)
+            ptr(lanes), ptr(n_lanes), ptr(order), ptr(count),
+            *(ptr(b) for b in bufs), traverse.LEAF_SIZE, float(t_epsilon),
+            int(any_hit), ptr(t), ptr(orig), ptr(u), ptr(v), stream)
         cuda_lib.check(err, "tlas walk kernel")
     launch_counts["tlas_walk"] += 1
     return t, orig, u, v
 
 
+def occupancy(lib=None) -> dict:
+    """Resident blocks per SM of the current CUDA device of the premask
+    and the walk kernel (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    from ``lib`` or this checkout's kernel library."""
+    lib = lib or cuda_lib.load()
+    premask_blocks, walk_blocks = ctypes.c_int(0), ctypes.c_int(0)
+    cuda_lib.check(lib.rfw_tlas_occupancy(ctypes.byref(premask_blocks),
+                                          ctypes.byref(walk_blocks)),
+                   "tlas occupancy query")
+    return {"tlas_premask": premask_blocks.value,
+            "tlas_walk": walk_blocks.value}
+
+
 def walk_groups(tables: dict, o, d, t_max, t_epsilon: float,
                 any_hit: bool = False, ray_chunk: int = 65536):
     """``walk`` BLAS by BLAS through the two wrappers: ``premask`` below
-    the best t the BLASes before left, ``visit_order`` and
-    ``walk_group``; the kernels on CUDA tensors, ``premask_ref`` and
-    ``walk_group_ref`` on CPU tensors. Nothing is read to the host."""
+    the best t the BLASes before left (for any hit, of the rays without a
+    hit), ``visit_order`` and ``walk_group``; the kernels on CUDA
+    tensors, ``premask_ref`` and ``walk_group_ref`` on CPU tensors.
+    Nothing is read to the host."""
     state = start_state(o, t_max)
     for rows in tables["blas"]:
-        cross, tn_min = premask(rows["inst_bmin"], rows["inst_bmax"], o, d,
-                                state[0], ray_chunk)
+        cross, tn_min, lanes, n_lanes = premask(
+            rows["inst_bmin"], rows["inst_bmax"], o, d, state[0], t_epsilon,
+            state[1] if any_hit else None, ray_chunk)
         order, count = visit_order(cross, tn_min)
-        state = walk_group(rows, o, d, state, order, count, t_epsilon,
-                           any_hit)
+        state = walk_group(rows, o, d, state, order, count, lanes, n_lanes,
+                           t_epsilon, any_hit)
     return state
 
 

@@ -1,7 +1,8 @@
 // One ray's walk of a 4-wide BVH, shared by traverse_kernel.cu (a ray a
-// thread over the scene's BVH) and tlas_kernel.cu (a ray a thread over
-// each touched instance's BLAS). Header-only; every function is inline,
-// so each translation unit keeps its own copy.
+// thread over the scene's BVH, walk_bvh) and tlas_kernel.cu (a ray a
+// thread over each touched instance's BLAS, one walk_step at a time).
+// Header-only; every function is inline, so each translation unit keeps
+// its own copy.
 //
 // Order, exactly as ops/traverse.py::traverse_wide_ref (and rfw_tpu)
 // takes it:
@@ -80,10 +81,85 @@ __device__ __forceinline__ void test_tri(float3 o, float3 d,
   }
 }
 
-// The walk of one live ray (o, d) from the root of the node-major table
-// (traverse.node_table) against best.t, which it lowers at each hit;
-// best.prim is the hit row of the triangle table, untouched on a miss.
-// The reciprocal is safe_inv of d, the sign-preserving clamp.
+// One pop of the walk of the live ray (o, d), whose reciprocal inv is
+// safe_inv of d (the sign-preserving clamp), from the nodes left on
+// stack (ptr of them pushed; stack[0] = 0, the root, and ptr = 1 to
+// start) of the node-major table (traverse.node_table), against best.t,
+// which it lowers at each hit; best.prim is the hit row of the triangle
+// table, untouched on a miss. Returns whether the walk goes on: nodes
+// are left and, for any hit, no hit was recorded. The ray stays in the
+// caller's registers; only the stack is in local memory.
+__device__ __forceinline__ bool walk_step(float3 o, float3 d, float3 inv,
+                                          int* stack, int& ptr,
+                                          const float4* __restrict__ nodes,
+                                          const float4* __restrict__ tris,
+                                          int leaf_size, float eps,
+                                          bool any_hit, Hit& best) {
+  const int node = stack[min(ptr - 1, kStack - 1)];
+  ptr -= 1;
+  const float4* nd = nodes + (size_t)node * (2 * kWidth);
+  float tnear[kWidth];
+  int child[kWidth];
+  bool push[kWidth];
+  unsigned todo = 0;      // leaf tests, bit 8 j + i: slot j, triangle i
+  const float t_entry = best.t;
+#pragma unroll
+  for (int j = 0; j < kWidth; ++j) {
+    const float4 lo = __ldg(nd + j);
+    const float4 hi = __ldg(nd + kWidth + j);
+    child[j] = __float_as_int(lo.w);
+    const int count = __float_as_int(hi.w);
+    const float t1x = (lo.x - o.x) * inv.x, t2x = (hi.x - o.x) * inv.x;
+    const float t1y = (lo.y - o.y) * inv.y, t2y = (hi.y - o.y) * inv.y;
+    const float t1z = (lo.z - o.z) * inv.z, t2z = (hi.z - o.z) * inv.z;
+    const float tn =
+        tmax(tmax(tmin(t1x, t2x), tmin(t1y, t2y)), tmin(t1z, t2z));
+    const float tf =
+        tmin(tmin(tmax(t1x, t2x), tmax(t1y, t2y)), tmax(t1z, t2z));
+    tnear[j] = tn;
+    const bool hit = tf >= tmax(tn, 0.0f) && tn < t_entry && child[j] >= 0;
+    push[j] = hit && count < 0;
+    if (hit && count > 0) {
+      const int cnt = min(count & 0x7FFFFFFF, leaf_size);
+      todo |= ((1u << cnt) - 1u) << (8 * j);
+    }
+  }
+  while (todo) {
+    const int b = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const int s = b >> 3;
+    const int first = s == 0 ? child[0] : s == 1 ? child[1]
+                                        : s == 2 ? child[2] : child[3];
+    test_tri(o, d, tris, first + (b & 7), eps, best);
+  }
+  // slot j's place in the push sequence: after every pushed slot with
+  // a larger tnear, or an equal one in a higher slot
+  int pos[kWidth];
+#pragma unroll
+  for (int j = 0; j < kWidth; ++j) {
+    int p = 0;
+#pragma unroll
+    for (int k = 0; k < kWidth; ++k)
+      p += push[k] && (tnear[k] > tnear[j] ||
+                       (tnear[k] == tnear[j] && k > j));
+    pos[j] = p;
+  }
+  int pushed = 0;
+#pragma unroll
+  for (int q = 0; q < kWidth; ++q) {
+#pragma unroll
+    for (int j = 0; j < kWidth; ++j) {
+      if (push[j] && pos[j] == q) {
+        stack[min(ptr + q, kStack - 1)] = child[j];
+        ++pushed;
+      }
+    }
+  }
+  ptr += pushed;
+  return ptr > 0 && !(any_hit && best.prim >= 0);
+}
+
+// The whole walk of one live ray (o, d) from the root against best.
 __device__ __forceinline__ void walk_bvh(float3 o, float3 d,
                                          const float4* __restrict__ nodes,
                                          const float4* __restrict__ tris,
@@ -94,71 +170,9 @@ __device__ __forceinline__ void walk_bvh(float3 o, float3 d,
   int stack[kStack];
   stack[0] = 0;
   int ptr = 1;
-  do {
-    // one pop
-    const int node = stack[min(ptr - 1, kStack - 1)];
-    ptr -= 1;
-    const float4* nd = nodes + (size_t)node * (2 * kWidth);
-    float tnear[kWidth];
-    int child[kWidth];
-    bool push[kWidth];
-    unsigned todo = 0;      // leaf tests, bit 8 j + i: slot j, triangle i
-    const float t_entry = best.t;
-#pragma unroll
-    for (int j = 0; j < kWidth; ++j) {
-      const float4 lo = __ldg(nd + j);
-      const float4 hi = __ldg(nd + kWidth + j);
-      child[j] = __float_as_int(lo.w);
-      const int count = __float_as_int(hi.w);
-      const float t1x = (lo.x - o.x) * inv.x, t2x = (hi.x - o.x) * inv.x;
-      const float t1y = (lo.y - o.y) * inv.y, t2y = (hi.y - o.y) * inv.y;
-      const float t1z = (lo.z - o.z) * inv.z, t2z = (hi.z - o.z) * inv.z;
-      const float tn =
-          tmax(tmax(tmin(t1x, t2x), tmin(t1y, t2y)), tmin(t1z, t2z));
-      const float tf =
-          tmin(tmin(tmax(t1x, t2x), tmax(t1y, t2y)), tmax(t1z, t2z));
-      tnear[j] = tn;
-      const bool hit =
-          tf >= tmax(tn, 0.0f) && tn < t_entry && child[j] >= 0;
-      push[j] = hit && count < 0;
-      if (hit && count > 0) {
-        const int cnt = min(count & 0x7FFFFFFF, leaf_size);
-        todo |= ((1u << cnt) - 1u) << (8 * j);
-      }
-    }
-    while (todo) {
-      const int b = __ffs(todo) - 1;
-      todo &= todo - 1u;
-      const int s = b >> 3;
-      const int first = s == 0 ? child[0] : s == 1 ? child[1]
-                                          : s == 2 ? child[2] : child[3];
-      test_tri(o, d, tris, first + (b & 7), eps, best);
-    }
-    // slot j's place in the push sequence: after every pushed slot with
-    // a larger tnear, or an equal one in a higher slot
-    int pos[kWidth];
-#pragma unroll
-    for (int j = 0; j < kWidth; ++j) {
-      int p = 0;
-#pragma unroll
-      for (int k = 0; k < kWidth; ++k)
-        p += push[k] && (tnear[k] > tnear[j] ||
-                         (tnear[k] == tnear[j] && k > j));
-      pos[j] = p;
-    }
-    int pushed = 0;
-#pragma unroll
-    for (int q = 0; q < kWidth; ++q) {
-#pragma unroll
-      for (int j = 0; j < kWidth; ++j) {
-        if (push[j] && pos[j] == q) {
-          stack[min(ptr + q, kStack - 1)] = child[j];
-          ++pushed;
-        }
-      }
-    }
-    ptr += pushed;
-  } while (ptr > 0 && !(any_hit && best.prim >= 0));
+  while (walk_step(o, d, inv, stack, ptr, nodes, tris, leaf_size, eps,
+                   any_hit, best)) {
+  }
 }
 
 }  // namespace rfw

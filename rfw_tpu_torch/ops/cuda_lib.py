@@ -200,10 +200,11 @@ def load() -> ctypes.CDLL:
     lib.rfw_tvisit.restype = i
     lib.rfw_traverse.argtypes = [p, p, p, i, p, p, i, f, i, p, p, p, p, p]
     lib.rfw_traverse.restype = i
-    lib.rfw_tlas_premask.argtypes = [p, p, p, i, p, p, i, p, p, p]
+    lib.rfw_tlas_premask.argtypes = [p, p, p, p, i, f, p, p, i, p, p, p, p,
+                                     p]
     lib.rfw_tlas_premask.restype = i
     lib.rfw_tlas_walk.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p,
-                                  p, p, i, f, i, p, p, p, p, p]
+                                  p, p, p, p, i, f, i, p, p, p, p, p]
     lib.rfw_tlas_walk.restype = i
     lib.rfw_error_string.argtypes = [i]
     lib.rfw_error_string.restype = ctypes.c_char_p

@@ -36,10 +36,11 @@ import tempfile
 from ..ops import cuda_lib
 
 
-def parent_library(root: str):
-    """(library, ptxas report of its expand_kernel) built from ROOT's
-    ``rfw_tpu_torch/csrc/`` into this checkout's build directory; the
-    loaded library of this checkout stays as it was."""
+def parent_library(root: str, kernel: str | None = "expand_kernel"):
+    """(library, ptxas report of its ``kernel``, of every kernel for
+    None) built from ROOT's ``rfw_tpu_torch/csrc/`` into this checkout's
+    build directory; the loaded library of this checkout stays as it
+    was."""
     csrc = os.path.join(os.path.abspath(root), "rfw_tpu_torch", "csrc")
     saved = (cuda_lib.SOURCES, cuda_lib._lib, cuda_lib.build_log,
              cuda_lib.build_seconds)
@@ -48,8 +49,9 @@ def parent_library(root: str):
     cuda_lib._lib = None
     try:
         lib = cuda_lib.load()
-        report = cuda_lib.ptxas_report(cuda_lib.build_log).get(
-            "expand_kernel")
+        report = cuda_lib.ptxas_report(cuda_lib.build_log)
+        if kernel is not None:
+            report = report.get(kernel)
     finally:
         (cuda_lib.SOURCES, cuda_lib._lib, cuda_lib.build_log,
          cuda_lib.build_seconds) = saved
@@ -67,22 +69,25 @@ def using(lib):
         cuda_lib._lib = saved
 
 
-def ab_device_ms(args, plain, parent, timer, check) -> dict:
-    """Device ms of the parent's (``parent``, a library) and this
-    checkout's expansion kernel on ``args``, in the order parent, change,
-    change, parent; each equal to ``plain`` (cids, counts, tnears) before
-    it is timed."""
+def ab_device_ms(runs: dict, plain, timer, check, equal) -> dict:
+    """Device ms of ``runs["parent"]`` and ``runs["change"]`` (each a
+    launch of no argument) in the order parent, change, change, parent;
+    each ``equal`` to ``plain`` before it is timed."""
     import torch
-    from ..ops import tvisit_intersect as tv
     times = {"parent": [], "change": []}
     for which in ("parent", "change", "change", "parent"):
-        with using(parent if which == "parent" else cuda_lib.load()):
-            got = tv.expand_children(*args)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(got, plain)),
-                  f"{which}'s expansion kernel != plain")
-            times[which].append(timer(lambda: tv.expand_children(*args)))
+        got = runs[which]()
+        torch.cuda.synchronize()
+        check(equal(got, plain), f"{which}'s kernel != plain")
+        times[which].append(timer(runs[which]))
     return times
+
+
+def _expand_on(lib, args):
+    """The expansion kernel of ``lib`` on ``args``."""
+    from ..ops import tvisit_intersect as tv
+    with using(lib):
+        return tv.expand_children(*args)
 
 
 def main(argv) -> int:
@@ -122,8 +127,12 @@ def main(argv) -> int:
             tl, streams, diag).items():
         args = (ids, rays, bmin32, bmax32, diag, t_p)
         plain = tv.expand_children_ref(*args)
-        times[name] = ab_device_ms(args, plain, parent,
-                                   chip_smoke._device_ms, chip_smoke._check)
+        runs = {"parent": lambda a=args: _expand_on(parent, a),
+                "change": lambda a=args: _expand_on(lib, a)}
+        times[name] = ab_device_ms(
+            runs, plain, chip_smoke._device_ms, chip_smoke._check,
+            lambda got, want: all(torch.equal(x, y)
+                                  for x, y in zip(got, want)))
         print(f"{name}: equal, device ms parent {times[name]['parent']}, "
               f"change {times[name]['change']}")
     launches, frames = {}, {}

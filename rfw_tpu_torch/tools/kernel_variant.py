@@ -3,20 +3,25 @@
     python3 -m rfw_tpu_torch.tools.kernel_variant KERNEL NAME=VALUE [...]
 
 Run from the repository root. KERNEL is ``enum``, ``expand``,
-``tvisit`` or ``traverse``. The variant is a copy of ``csrc/`` in which
-each named ``constexpr int NAME = ...;`` takes the given value (for
-example ``enum kEnumCells=1``: one cell a thread; ``tvisit
-kTvisitRays=1``: one ray a thread; ``expand kExpandSlots=2``: two child
-slots a work item; ``traverse kTraverseThreads=64``: blocks of 64
-threads). The script builds both libraries, builds chip_smoke.py's
-1080p slice scene (switched to the tvisit intersector for ``expand`` and
-``tvisit``) and takes its phase-3 streams (a primary chunk and a bounce
-chunk; for ``expand`` and ``traverse`` also the depth-0 fused shadow
-launch). On each
+``tvisit``, ``traverse`` or ``tlas`` (both tlas kernels). The variant is
+a copy of ``csrc/`` in which each named ``constexpr int NAME = ...;``
+takes the given value (for example ``enum kEnumCells=1``: one cell a
+thread; ``tvisit kTvisitRays=1``: one ray a thread; ``expand
+kExpandSlots=2``: two child slots a work item; ``traverse
+kTraverseThreads=64``: blocks of 64 threads; ``tlas kTlasWalkBatch=1``:
+one box test before a walk, ``tlas kPremaskBoxes=2``: two box tests a
+step). The script builds both libraries, builds chip_smoke.py's 1080p
+slice scene (switched to the tvisit intersector for ``expand`` and
+``tvisit``; for ``tlas`` phase 10's instanced scene on the tlas
+intersector) and takes its phase-3 streams (a primary chunk and a
+bounce chunk; for ``expand`` and ``traverse`` also the depth-0 fused
+shadow launch; for ``tlas`` the premask and walk launches of the
+spheres' BLAS group on the three). On each
 stream it holds each library's kernel to its plain version (equal; for
 ``expand`` and ``tvisit`` on pass 0's parent window, tvisit on the plain
 expansion's lists, closest hit; ``traverse`` closest and any hit on the
-two chunks, any hit on the shadow launch, bit for bit) and times them in
+two chunks, any hit on the shadow launch, bit for bit; ``tlas`` as
+chip_smoke.py's phase 10 holds it) and times them in
 alternation, built, variant, variant, built (the device time of 20
 launches queued behind a device-side wait, chip_smoke._device_ms, median
 of 5 each). The last line is one JSON object with the times and both
@@ -36,7 +41,7 @@ import torch
 
 from ..ops import cuda_lib
 
-KERNELS = ("enum", "expand", "tvisit", "traverse")
+KERNELS = ("enum", "expand", "tvisit", "traverse", "tlas")
 
 
 def variant_sources(consts: dict, out_dir: str) -> tuple:
@@ -77,11 +82,41 @@ def _equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def _tlas_cases(rs, chip_smoke) -> dict:
+    """Per stream of phase 10's chunk 0: (launch, plain result, note,
+    equality) of the premask and the walk on the spheres' BLAS group, the
+    walk on the built premask's list."""
+    from ..bvh import tlas
+    _, streams, _, held, _, spheres = chip_smoke.tlas_launches(rs)
+    cases = {}
+    for name in streams:
+        args, out = held.premask[(name, spheres)]
+        lo, hi, o, d, best_t, t_eps, orig = args
+        cases[f"premask {name}"] = (
+            (lambda a=args: tlas.premask(*a)),
+            tlas.premask_ref(lo, hi, o, tlas.safe_inv_box_dir(d), best_t,
+                             t_eps, orig),
+            f"{lo.shape[0]} instances, {int(out[3])} lanes listed",
+            chip_smoke._premask_equal)
+        args, _ = held.walk[(name, spheres)]
+        rows, o, d, state, order, count, _, n_lanes, t_eps, any_hit = args
+        cases[f"walk {name}"] = (
+            (lambda a=args: tlas.walk_group(*a)),
+            tlas.walk_group_ref(rows, o, d, state, order, count, t_eps,
+                                any_hit),
+            f"{int(count)} touched instances, {int(n_lanes)} lanes listed",
+            _equal)
+    return cases
+
+
 def _cases(kernel: str, rs, cfg, chip_smoke) -> dict:
-    """Per stream: (launch, plain result, note) for the named kernel."""
+    """Per stream: (launch, plain result, note[, equality]) for the named
+    kernel."""
     from ..ops import traverse
     from ..ops import tvisit_intersect as tv
     from ..ops import visit_intersect as vi
+    if kernel == "tlas":
+        return _tlas_cases(rs, chip_smoke)
     if kernel in ("expand", "tvisit"):
         rs.set_setting("intersector", "tvisit")
     scene, streams, _ = chip_smoke._streams(rs)
@@ -144,29 +179,37 @@ def main(argv) -> int:
     from ..system import RenderSystem
 
     built = cuda_lib.SOURCES
+    names = ((f"{kernel}_kernel",) if kernel != "tlas" else
+             ("tlas_premask_kernel", "tlas_walk_kernel"))
     libs, ptxas = {}, {}
     for which, sources in (("built", built), ("variant", variant_sources(
             consts, os.path.join(cuda_lib.BUILD_DIR, "variant_src")))):
         libs[which], log = _load(sources)
-        ptxas[which] = cuda_lib.ptxas_report(log).get(f"{kernel}_kernel")
-        print(f"{which}: {kernel}_kernel ptxas {ptxas[which]}")
+        report = cuda_lib.ptxas_report(log)
+        ptxas[which] = {name: report.get(name) for name in names}
+        print(f"{which}: ptxas {ptxas[which]}")
 
     cuda_lib._lib = libs["built"]
     cfg = RenderConfig()
-    rs = RenderSystem("wavefront", cfg, device="cuda")
     with tempfile.TemporaryDirectory() as work:
-        chip_smoke.build_slice_scene(rs, work)
+        if kernel == "tlas":
+            rs = chip_smoke._tlas_system(work)[0]
+            rs.set_setting("intersector", "tlas")
+        else:
+            rs = RenderSystem("wavefront", cfg, device="cuda")
+            chip_smoke.build_slice_scene(rs, work)
         rs.synchronize()
     # a launch can be shorter than its wrapper's host work: the device
     # time, from queued launches
     timer = chip_smoke._device_ms
     times = {}
-    for name, (run, ref, note) in _cases(kernel, rs, cfg,
-                                         chip_smoke).items():
+    for name, (run, ref, note, *eq) in _cases(kernel, rs, cfg,
+                                              chip_smoke).items():
+        equal = eq[0] if eq else _equal
         times[name] = {k: [] for k in libs}
         for which in ("built", "variant", "variant", "built"):
             cuda_lib._lib = libs[which]
-            chip_smoke._check(_equal(run(), ref),
+            chip_smoke._check(equal(run(), ref),
                               f"{which} {kernel} kernel != plain on {name}")
             times[name][which].append(timer(run))
         print(f"{name}: {kernel} built {times[name]['built']} ms, variant "

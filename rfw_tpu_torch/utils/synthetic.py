@@ -211,3 +211,46 @@ def expansion_windows(ids, rays, t_p: int, seed: int) -> dict:
     return {"all_real": (real, rays), "interleaved": (mixed, rays),
             "one_live": (mixed, one), "dead_nan": (ids, dead),
             "far": (mixed, far)}
+
+
+def tlas_cases(lo, hi, o, d, t, seed: int) -> dict:
+    """Made-up inputs for checks of the tlas premask and walk on one BLAS
+    group of k >= 2 instances, from its world boxes ``lo``, ``hi`` (k, 3)
+    and real rays ``o``, ``d`` (R, 3) with bounds ``t`` (R,), float32
+    numpy with finite directions. Returns {name: (o, d, t, any_hit,
+    twin)}: rays, bounds, the hit mode, and whether instance 1 is to take
+    instance 0's matrix and box (the caller copies the rows), from
+    ``seed``:
+
+    * ``dead_inside``: every third ray starts at the centre of a box
+      with bound 0 (ray 3 j in box j mod k, so every box holds one when
+      R >= 3 k), the others as given: dead lanes whose origins lie inside
+      a box count in the premask's cross and tn_min (entry 0) and walk
+      nothing;
+    * ``all_live``: every ray starts at the centre of a box, bound 1e30:
+      every lane crosses a box and walks;
+    * ``none_cross``: every ray starts above the highest box and points
+      up, bound 1e30: no lane crosses a box, the list is empty;
+    * ``coincident_closest``, ``coincident_any``: instance 1 on instance
+      0, every ray aimed at a point of their box, bound 1e30: their hits
+      tie, the first walked wins (closest hit), the first in the visit
+      order that hits is taken (any hit).
+    """
+    rng = np.random.default_rng(seed)
+    n, k = o.shape[0], lo.shape[0]
+    centres = ((lo + hi) * np.float32(0.5)).astype(np.float32)
+    far = np.full(n, 1e30, np.float32)
+    dead_o, dead_t = o.copy(), t.copy()
+    dead_o[::3] = centres[np.arange(dead_o[::3].shape[0]) % k]
+    dead_t[::3] = 0.0
+    up_o, up_d = o.copy(), d.copy()
+    up_o[:, 1] = hi[:, 1].max() + 1.0 + np.abs(o[:, 1])
+    up_d[:, 1] = np.abs(d[:, 1]) + 1.0
+    aim = centres[0] + (rng.uniform(-0.4, 0.4, (n, 3)) * (hi[0] - lo[0]))
+    aim_d = (aim - o).astype(np.float32)
+    aim_d /= np.linalg.norm(aim_d, axis=-1, keepdims=True)
+    return {"dead_inside": (dead_o, d, dead_t, False, False),
+            "all_live": (centres[np.arange(n) % k], d, far, False, False),
+            "none_cross": (up_o, up_d, far, False, False),
+            "coincident_closest": (o, aim_d, far, False, True),
+            "coincident_any": (o, aim_d, far, True, True)}

@@ -109,7 +109,7 @@ def _tlas_premask():
     origins = torch.zeros((5, 3))
     return "rfw_tlas_premask", origins, lambda: tlas.premask(
         torch.zeros((2, 3)), torch.ones((2, 3)), origins, torch.ones((5, 3)),
-        torch.full((5,), 1e30))
+        torch.full((5,), 1e30), 1e-4)
 
 
 def _tlas_walk():
@@ -122,6 +122,7 @@ def _tlas_walk():
     return "rfw_tlas_walk", origins, lambda: tlas.walk_group(
         rows, origins, torch.ones((5, 3)), tlas.start_state(origins, 1e30),
         torch.arange(2, dtype=torch.int32), torch.ones(1, dtype=torch.int32),
+        torch.arange(5, dtype=torch.int32), torch.ones(1, dtype=torch.int32),
         1e-4)
 
 

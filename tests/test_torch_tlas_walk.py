@@ -2,10 +2,13 @@
 (``rfw_tpu_torch/bvh/tlas.py``): ``premask_ref`` and ``walk_group_ref``,
 composed BLAS by BLAS by ``walk_groups`` as the card runs the two
 kernels, against ``walk_ref`` (the walk with a host read a BLAS) and
-against rfw_tpu's ``tlas`` intersector; a per-ray emulation of
-``tlas_walk_kernel``'s loop over the tensors the wrapper hands it; the
-rows an instance move refreshes; and the dispatch (CPU tensors count no
-launch, an unknown device raises).
+against rfw_tpu's ``tlas`` intersector, also on the made-up inputs of
+``utils/synthetic.py::tlas_cases`` (dead lanes inside a box, every lane
+live, no lane crossing, coincident instances), with the premask's list
+of walking lanes against the rays the plain walk walked; a per-ray
+emulation of ``tlas_walk_kernel``'s loop over the list and the tensors
+the wrapper hands it; the rows an instance move refreshes; and the
+dispatch (CPU tensors count no launch, an unknown device raises).
 
 Tolerances: the plain versions against each other and the emulation,
 bit for bit (the same float32 operations in the same order); against
@@ -13,6 +16,9 @@ rfw_tpu, tests/test_visit.py's bars (hit masks equal, prim agreement >
 0.999, relative t < 1e-4: the object-space rays are fixed-order sums
 here and XLA's matrix products there).
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +40,7 @@ from rfw_tpu_torch.render import intersectors, scene_data
 from rfw_tpu_torch.scene import HostMaterial, MaterialList, make_quad
 from rfw_tpu_torch.scene.lights import pack_lights
 from rfw_tpu_torch.scene.mesh import build_triangles
+from rfw_tpu_torch.utils import synthetic
 
 EPS = 1e-4
 
@@ -156,8 +163,9 @@ def test_premask_and_visit_order():
                      torch.stack([c[0], c[1], torch.tensor(-40.0)])])
     d = torch.tensor([[-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
     best_t = torch.full((2,), 1e30)
-    cross, tn_min = tlas.premask_ref(lo, hi, o, tlas.safe_inv_box_dir(d),
-                                     best_t)
+    cross, tn_min, lanes, n_lanes = tlas.premask_ref(
+        lo, hi, o, tlas.safe_inv_box_dir(d), best_t, EPS)
+    assert lanes.tolist() == [0, 1] and n_lanes.tolist() == [2]
     assert cross[0] and cross[2]
     assert _bits(tn_min[0]) == 0 and _bits(tn_min[2]) == 0   # not -0.0
     assert (tn_min[~cross] == BIG_T).all()
@@ -203,21 +211,22 @@ def _agree(t, orig, j_t, j_orig, j_hit):
     assert rel.max() < 1e-4
 
 
-def _rfw_tpu_tables():
+def _rfw_tpu_tables(placed=PLACED):
     tables = j_sd._build_tlas_tables(
-        _instances(j_sd, j_build_triangles), _perm())
+        _instances(j_sd, j_build_triangles, placed), _perm())
     return jax.tree_util.tree_map(jnp.asarray, tables)
 
 
-def _rfw_tpu_closest(o, d, dist=None):
+def _rfw_tpu_closest(o, d, dist=None, placed=PLACED, t_max=None):
     isect = j_isect.FACTORIES["tlas"](JConfig(use_tlas=True))
-    scene = {"tlas": _rfw_tpu_tables()}
+    scene = {"tlas": _rfw_tpu_tables(placed)}
     if dist is not None:
         return np.asarray(isect.occluded(scene, jnp.asarray(o.numpy()),
                                          jnp.asarray(d.numpy()),
                                          jnp.asarray(dist.numpy())))
-    t, prim, _, _ = isect.closest(scene, jnp.asarray(o.numpy()),
-                                  jnp.asarray(d.numpy()))
+    t, prim, _, _ = isect.closest(
+        scene, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+        None if t_max is None else jnp.asarray(t_max.numpy()))
     return np.asarray(t), np.asarray(prim)
 
 
@@ -240,6 +249,109 @@ def test_walk_groups_match_rfw_tpu_intersector(monkeypatch):
     occ = isect.occluded(scene, o, d, dist).numpy()
     assert np.array_equal(occ, _rfw_tpu_closest(o, d, dist))
     assert occ.any() and not occ.all()
+
+
+# -- made-up inputs (utils/synthetic.py::tlas_cases) -------------------------
+
+# instance 1 of BLAS 0's group is PLACED[2]; the coincident cases put it
+# on instance 0 (PLACED[0]), as tlas_cases' rows copy asks
+TWIN_PLACED = [PLACED[0], PLACED[1], PLACED[0], *PLACED[3:]]
+CASES = ("dead_inside", "all_live", "none_cross", "coincident_closest",
+         "coincident_any")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_made_up_cases(case, monkeypatch):
+    """tlas_cases' inputs on BLAS 0's group (4 instances, 2 of them
+    already coincident), from _rays: walk_groups (premask_ref,
+    visit_order, walk_group_ref BLAS by BLAS) equals walk_ref bit for
+    bit; every group's list of walking lanes equals the rays
+    walk_group_ref walked (``stats["walked"]``, in order) and the rest of
+    the list the others; dead lanes inside a box set their instance's
+    tn_min to 0 and stay off the list; all-live lists every lane of BLAS
+    0's group, none-cross none anywhere; the coincident pair's ties go to
+    the instance walked first. Against rfw_tpu's tlas intersector on the
+    same instances (the twin placed on instance 0 by its transform): hit
+    masks and hit triangles equal, t within 1e-4 relative (object-space
+    rays are fixed-order sums here, XLA's matrix products there)."""
+    placed = TWIN_PLACED if case.startswith("coincident") else PLACED
+    tables = _port_tables()
+    rows = tables["blas"][0]
+    o, d = _rays(edges=False)
+    lo, hi = rows["inst_bmin"].numpy(), rows["inst_bmax"].numpy()
+    o_n, d_n, t_n, any_hit, twin = synthetic.tlas_cases(
+        lo, hi, o.numpy(), d.numpy(),
+        np.full(o.shape[0], BIG_T, np.float32), seed=3)[case]
+    o, d, t_max = (torch.from_numpy(x) for x in (o_n, d_n, t_n))
+    if twin:
+        rows = dict(rows)
+        for k in ("inst_inv", "inst_bmin", "inst_bmax"):
+            rows[k] = rows[k].clone()
+            rows[k][1] = rows[k][0]
+        tables = {"blas": (rows, *tables["blas"][1:])}
+        placed_rows = _port_tables(placed)["blas"][0]
+        assert all(_equal((placed_rows[k],), (rows[k],))
+                   for k in ("inst_inv", "inst_bmin", "inst_bmax",
+                             "inst_base"))
+
+    walks = []
+    walk_group = tlas.walk_group
+
+    def held(rows_, o_, d_, state, order, count, lanes, n_lanes, *a):
+        stats = {}
+        tlas.walk_group_ref(rows_, o_, d_, state, order, count, *a,
+                            stats=stats)
+        walks.append((lanes, n_lanes, stats["walked"], state))
+        return walk_group(rows_, o_, d_, state, order, count, lanes, n_lanes,
+                          *a)
+
+    monkeypatch.setattr(tlas, "walk_group", held)
+    got = tlas.walk_groups(tables, o, d, t_max, EPS, any_hit)
+    want = tlas.walk_ref(tables, o, d, t_max, EPS, any_hit)
+    assert _equal(got, want)
+    assert len(walks) == len(tables["blas"])
+    for lanes, n_lanes, walked, _ in walks:
+        k = int(n_lanes[0])
+        assert torch.equal(lanes[:k].long(), walked.nonzero()[:, 0])
+        assert torch.equal(lanes[k:].long(), (~walked).nonzero()[:, 0])
+
+    n = o.shape[0]
+    listed = [int(w[1][0]) for w in walks]
+    hit = got[1] >= 0
+    if case == "dead_inside":
+        dead = t_max == 0
+        cross, tn_min, lanes, n_lanes = tlas.premask_ref(
+            rows["inst_bmin"], rows["inst_bmax"], o,
+            tlas.safe_inv_box_dir(d), t_max, EPS)
+        assert cross.all() and (tn_min == 0).all()
+        assert not dead[lanes[:int(n_lanes[0])].long()].any()
+        assert torch.equal(got[0][dead], t_max[dead]) and not hit[dead].any()
+        assert 0 < listed[0] < n
+    elif case == "all_live":
+        assert listed[0] == n and hit.sum() > n // 2
+    elif case == "none_cross":
+        assert listed == [0] * len(walks) and not hit.any()
+        assert _equal(got, tlas.start_state(o, t_max))
+    else:
+        base = rows["inst_base"]
+        n0 = MESHES[0].shape[0]
+        on = [(got[1] >= base[i]) & (got[1] < base[i] + n0)
+              for i in range(3)]
+        assert hit.sum() > n // 2 and on[0].sum() > n // 4
+        assert not (on[1] | on[2]).any()
+
+    if any_hit:
+        occ = _rfw_tpu_closest(o, d, dist=t_max, placed=placed)
+        assert np.array_equal(hit.numpy(), occ)
+        return
+    j_t, j_prim = _rfw_tpu_closest(o, d, placed=placed, t_max=t_max)
+    j_hit = j_prim >= 0
+    assert np.array_equal(hit.numpy(), j_hit)
+    j_orig = np.argsort(_perm())[j_prim[j_hit]]
+    assert np.array_equal(got[1].numpy()[j_hit], j_orig)
+    t, jt = got[0].numpy()[j_hit], j_t[j_hit]
+    assert (np.abs(t - jt) / np.maximum(np.abs(jt), 1e-6)).max(
+        initial=0.0) < 1e-4
 
 
 # -- a per-ray emulation of tlas_walk_kernel ---------------------------------
@@ -326,34 +438,61 @@ def _walk_bvh(o, d, nodes, nodes_i, tris, leaf_size, eps, any_hit, best):
             return
 
 
-def _emulate_walk_kernel(rows, o, d, state, order, count, eps, any_hit):
-    """tlas_walk_kernel, one ray at a time, over the flat buffers of the
-    tensors the wrapper hands it (``group_buffers``; the state, order and
-    count as int32/float32 arrays), float32 arithmetic throughout."""
+def _walk_batch():
+    """kTlasWalkBatch of the shipped kernel source."""
+    src = os.path.join(os.path.dirname(cuda_lib.SOURCES[0]),
+                       "tlas_kernel.cu")
+    with open(src) as f:
+        return int(re.search(r"constexpr int kTlasWalkBatch = (\d+);",
+                             f.read()).group(1))
+
+
+def _emulate_walk_kernel(rows, o, d, state, order, count, lanes, n_lanes,
+                         eps, any_hit):
+    """tlas_walk_kernel, one thread j at a time, over the flat buffers of
+    the tensors the wrapper hands it (``group_buffers``; the state, list,
+    order and counts as int32/float32 arrays), float32 arithmetic
+    throughout: thread j takes ray lanes[j], walks it below n_lanes (the
+    next kTlasWalkBatch boxes tested at the current best t, the first hit
+    walked, the scan going on after it) and copies its state past it."""
     bmin, bmax, inv_m, base, nodes, tris, prim_order = (
         b.numpy().reshape(-1) for b in tlas.group_buffers(rows))
     nodes_i = nodes.view(np.int32)
     o, d = o.numpy(), d.numpy()
     t_in, orig_in, u_in, v_in = (x.numpy() for x in state)
     order = order.numpy().astype(np.int32, casting="no")
+    lanes = lanes.numpy().astype(np.int32, casting="no")
     touched = int(count.numpy().astype(np.int32, casting="no")[0])
-    out = [np.empty_like(t_in), np.empty_like(orig_in), np.empty_like(u_in),
-           np.empty_like(v_in)]
-    for r in range(o.shape[0]):
+    listed = int(n_lanes.numpy().astype(np.int32, casting="no")[0])
+    batch = _walk_batch()
+    out = [np.full_like(t_in, np.nan), np.full_like(orig_in, -7),
+           np.full_like(u_in, np.nan), np.full_like(v_in, np.nan)]
+
+    def box(i, orr, inv, cap):
+        tn, tf = _slab(bmin[3 * i:3 * i + 3], bmax[3 * i:3 * i + 3], orr,
+                       inv)
+        return tf >= _tmax(tn, F(0.0)) and tn < cap
+
+    for j in range(o.shape[0]):
+        r = int(lanes[j])
         bt, bo, bu, bv = t_in[r], int(orig_in[r]), u_in[r], v_in[r]
         orr, dr = o[r], d[r]
         inv = [F(1.0) / (F(1e-12) if abs(x) < F(1e-12) else x) for x in dr]
-        for q in range(touched):
-            if any_hit and bo >= 0:
+        q = 0
+        while j < listed:
+            if q >= touched or (any_hit and bo >= 0) or not bt > eps:
                 break
-            i = int(order[q])
-            tn, tf = _slab(bmin[3 * i:3 * i + 3], bmax[3 * i:3 * i + 3],
-                           orr, inv)
-            if not (tf >= _tmax(tn, F(0.0)) and tn < bt) or not bt > eps:
+            hits = [b for b in range(batch) if q + b < touched
+                    and box(int(order[q + b]), orr, inv, bt)]
+            if not hits:
+                q += batch
                 continue
+            q += hits[0] + 1
+            i = int(order[q - 1])
             m = inv_m[16 * i:16 * i + 16]
             oo = [orr[0] * m[4 * k] + orr[1] * m[4 * k + 1]
-                  + orr[2] * m[4 * k + 2] + m[4 * k + 3] for k in range(3)]
+                  + orr[2] * m[4 * k + 2] + m[4 * k + 3]
+                  for k in range(3)]
             dd = [dr[0] * m[4 * k] + dr[1] * m[4 * k + 1]
                   + dr[2] * m[4 * k + 2] for k in range(3)]
             best = [bt, F(0.0), F(0.0), -1]
@@ -366,31 +505,48 @@ def _emulate_walk_kernel(rows, o, d, state, order, count, eps, any_hit):
     return tuple(torch.from_numpy(x) for x in out)
 
 
+def _shuffled(lanes, n_lanes, seed):
+    """The plain list with each part in a seeded order, as the kernel's
+    parts come in an order that changes from run to run."""
+    rng = np.random.default_rng(seed)
+    a = lanes.numpy().copy()
+    k = int(n_lanes[0])
+    a[:k], a[k:] = rng.permutation(a[:k]), rng.permutation(a[k:])
+    return torch.from_numpy(a)
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_kernel_emulation_equals_walk_ref(any_hit):
     """The emulation of tlas_walk_kernel, BLAS by BLAS after the plain
-    premask and visit order, equals walk_group_ref launch by launch and
-    walk_ref at the end, bit for bit: the kernel's reading of the
-    wrapper's buffers (dtypes, strides, inst_inv's rows) is right."""
+    premask (its list of lanes, each part shuffled) and visit order,
+    equals walk_group_ref launch by launch and walk_ref at the end, bit
+    for bit: the kernel's reading of the wrapper's buffers (dtypes,
+    strides, inst_inv's rows), its walk over the listed rays only and its
+    copy of the others are right, in any order of the list."""
     tables = _port_tables()
     o, d = _rays()
     t_max = torch.linspace(0.5, 12.0, o.shape[0]) if any_hit else BIG_T
     state = tlas.start_state(o, t_max)
     emulated = state
-    for rows in tables["blas"]:
-        cross, tn_min = tlas.premask_ref(
+    listed = []
+    for g, rows in enumerate(tables["blas"]):
+        cross, tn_min, lanes, n_lanes = tlas.premask_ref(
             rows["inst_bmin"], rows["inst_bmax"], o,
-            tlas.safe_inv_box_dir(d), state[0])
+            tlas.safe_inv_box_dir(d), state[0], EPS,
+            state[1] if any_hit else None)
         order, count = tlas.visit_order(cross, tn_min)
         want = tlas.walk_group_ref(rows, o, d, state, order, count, EPS,
                                    any_hit)
         with np.errstate(all="ignore"):
-            got = _emulate_walk_kernel(rows, o, d, state, order, count, EPS,
-                                       any_hit)
+            got = _emulate_walk_kernel(rows, o, d, state, order, count,
+                                       _shuffled(lanes, n_lanes, g),
+                                       n_lanes, EPS, any_hit)
         assert _equal(got, want)
+        listed.append(int(n_lanes[0]))
         state = emulated = want
     assert _equal(emulated, tlas.walk_ref(tables, o, d, t_max, EPS, any_hit))
     assert (emulated[1] >= 0).sum() > 10
+    assert all(0 < k < o.shape[0] for k in listed)
 
 
 def test_group_buffers_check_the_layout():
@@ -483,9 +639,10 @@ def test_cpu_tensors_count_no_launch():
     tlas.walk_groups(tables, o, d, BIG_T, EPS, any_hit=True)
     rows = tables["blas"][0]
     state = tlas.start_state(o, BIG_T)
-    cross, tn_min = tlas.premask(rows["inst_bmin"], rows["inst_bmax"], o, d,
-                                 state[0])
-    tlas.walk_group(rows, o, d, state, *tlas.visit_order(cross, tn_min), EPS)
+    cross, tn_min, lanes, n_lanes = tlas.premask(
+        rows["inst_bmin"], rows["inst_bmax"], o, d, state[0], EPS)
+    tlas.walk_group(rows, o, d, state, *tlas.visit_order(cross, tn_min),
+                    lanes, n_lanes, EPS)
     assert cuda_lib.launch_counts == before
 
 
@@ -497,8 +654,10 @@ def test_unknown_device_raises():
         tlas.walk(tables, o, d, BIG_T, EPS)
     with pytest.raises(RuntimeError, match="no tlas kernels for device meta"):
         tlas.premask(rows["inst_bmin"], rows["inst_bmax"], o, d,
-                     torch.full((8,), 1.0, device="meta"))
+                     torch.full((8,), 1.0, device="meta"), EPS)
     state = tlas.start_state(o, BIG_T)
     with pytest.raises(RuntimeError, match="no tlas kernels for device meta"):
         tlas.walk_group(rows, o, d, state, torch.zeros(4, dtype=torch.int32),
+                        torch.zeros(1, dtype=torch.int32),
+                        torch.arange(8, dtype=torch.int32),
                         torch.zeros(1, dtype=torch.int32), EPS)

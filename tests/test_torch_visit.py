@@ -375,11 +375,14 @@ def test_dead_lanes_enter_no_cell(soup):
 
 
 @pytest.mark.parametrize("const", ["kEnumCells", "kExpandSlots",
-                                   "kExpandMinBlocks", "kTvisitRays"])
+                                   "kExpandMinBlocks", "kTvisitRays",
+                                   "kPremaskBoxes", "kPremaskCluster",
+                                   "kTlasWalkBatch",
+                                   "kTlasWalkThreads"])
 def test_enum_variant_sources(tmp_path, const):
     """The kernel A/B script's variant copies replace exactly the named
-    constant (of the enum, expansion or tvisit kernel), carry the shared
-    headers beside them, and refuse a name the sources lack."""
+    constant (of the enum, expansion, tvisit or tlas kernels), carry the
+    shared headers beside them, and refuse a name the sources lack."""
     from rfw_tpu_torch.tools import kernel_variant
     paths = kernel_variant.variant_sources({const: "1"}, str(tmp_path))
     texts = [pathlib.Path(p).read_text() for p in paths]
