@@ -175,12 +175,19 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    viewer's wavefront), and of each
    kernel its launch with the most live lanes is held bit for bit to its
    plain version; then the example's Cornell at 64², 8 spp on
-   megakernel, card against CPU (RMSE < 2e-3).
+   megakernel, card against CPU (RMSE < 2e-3);
+13. the port's bench: ``python3 bench_torch.py`` at its defaults in a
+   process of its own (timeout 600 s), as a user runs it: the pica-4x
+   stand-in (phase 5's scene) at 1080p on wavefront, 3 CONVERGE windows
+   of 4 samples; it must exit 0 and print a last line with the bench's
+   keys, a finite positive Mrays/s, 1920x1080 primary rays a sample, 3
+   windows and enum and visit launched in its timed windows; the line
+   is printed beside the card's name and power limit.
 
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON
-(seven kernels; its launches from phases 5, 6, 9, 10, 11 and 12, and
+(seven kernels; its launches from phases 5, 6, 9, 10, 11, 12 and 13, and
 split by phase in ``launches_by_phase``; ``ms`` one launch between two
 events, ``device_ms`` the device time), the card's name and power
 limit, and the run's JSON result.
@@ -201,6 +208,9 @@ import time
 
 import numpy as np
 
+from rfw_tpu_torch.utils import synthetic
+from rfw_tpu_torch.utils.synthetic import SEED, build_slice_scene
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"enum": "rfw_tpu_torch/csrc/visit_kernels.cu",
            "visit": "rfw_tpu_torch/csrc/visit_kernels.cu",
@@ -219,7 +229,6 @@ REPLACES = {"enum": "rfw_tpu/ops/visit_intersect.py:94",
             "tlas_premask": "rfw_tpu/render/intersectors.py:201",
             "tlas_walk": "rfw_tpu/render/intersectors.py:201"}
 KERNELS = tuple(SOURCES)
-SEED = 20261016
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense)
 PEAK_FP32 = 67e12          # FLOP/s, an FMA counted as two
 PEAK_BYTES = 3.35e12       # bytes/s of HBM
@@ -241,148 +250,25 @@ def _check(cond: bool, what: str) -> None:
 # scenes
 # ---------------------------------------------------------------------------
 
-def _grid(origin, du, dv, n: int):
-    """n x n quads spanning origin + [0,1]du + [0,1]dv, normal du x dv."""
-    s = np.linspace(0.0, 1.0, n + 1, dtype=np.float32)
-    uu, vv = np.meshgrid(s, s, indexing="ij")
-    pos = (np.asarray(origin, np.float32) + uu[..., None] * du
-           + vv[..., None] * dv).reshape(-1, 3)
-    i = np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]
-    quads = np.stack([i, i + n + 1, i + n + 2, i + 1], -1).reshape(-1, 4)
-    faces = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
-    nrm = np.cross(du, dv).astype(np.float32)
-    nrm /= np.linalg.norm(nrm)
-    return pos, np.broadcast_to(nrm, pos.shape), faces
-
-
-def _write_ply(path, pos, nrm, faces, uv=None):
-    """Binary PLY of positions, normals and, given ``uv``, texture
-    coordinates (properties u, v)."""
-    props = ["x", "y", "z", "nx", "ny", "nz"] + (["u", "v"] if uv is not None
-                                                  else [])
-    header = (f"ply\nformat binary_little_endian 1.0\n"
-              f"element vertex {len(pos)}\n"
-              + "".join(f"property float {p}\n" for p in props)
-              + f"element face {len(faces)}\n"
-              f"property list uchar int vertex_indices\nend_header\n")
-    cols = [pos, nrm] + ([uv] if uv is not None else [])
-    vert = np.concatenate(cols, axis=1).astype("<f4")
-    face = np.zeros(len(faces), dtype=[("n", "u1"), ("i", "<i4", (3,))])
-    face["n"] = 3
-    face["i"] = faces
-    with open(path, "wb") as f:
-        f.write(header.encode("ascii"))
-        f.write(vert.tobytes())
-        f.write(face.tobytes())
-
-
-def _sphere_uv(unit):
-    """Spherical projection of unit-sphere vertices."""
-    u = 0.5 + np.arctan2(unit[:, 2], unit[:, 0]) / (2.0 * np.pi)
-    v = np.arccos(np.clip(unit[:, 1], -1.0, 1.0)) / np.pi
-    return np.stack([u, v], axis=1).astype(np.float32)
-
-
-def _planar_uv(pos, nrm, tile: float = 4.0):
-    """Planar projection along each vertex's dominant normal axis, one
-    texture repeat every ``tile`` units."""
-    axis = np.abs(nrm).argmax(axis=1)
-    keep = np.array([[1, 2], [0, 2], [0, 1]])[axis]
-    return (np.take_along_axis(pos, keep, axis=1) / tile).astype(np.float32)
-
-
 N_SPHERE_MATERIALS = 8
-
-
-def build_slice_scene(rs, workdir: str, materials=None) -> int:
-    """A stand-in for the reference bench's pica-4x scene (~305k
-    triangles of closed surfaces, absent here): 60 level-4 icospheres on
-    a floor, two walls, the bench's lamp quad and test sky. The spheres
-    and the room are written as binary PLY with texture coordinates and
-    loaded with add_object, the loader path users take. Deterministic
-    from SEED. ``materials`` = (sphere material ids, room material id)
-    gives sphere i material ``i % len(sphere ids)``, one PLY per sphere
-    material; without it, one untextured material each."""
-    from rfw_tpu_torch.utils.synthetic import icosphere
-    sv, sf = icosphere(4)
-    spheres = [sv * r + c for r, c in _sphere_placements()]
-    if materials is None:
-        materials = _slice_materials_plain(rs)
-    sphere_m, room_m = materials
-    for g, mat in enumerate(sphere_m):
-        group = spheres[g::len(sphere_m)]
-        path = os.path.join(workdir, f"spheres{g}.ply")
-        _write_ply(path, np.concatenate(group), np.tile(sv, (len(group), 1)),
-                   np.concatenate([sf + i * len(sv)
-                                   for i in range(len(group))]),
-                   np.tile(_sphere_uv(sv), (len(group), 1)))
-        rs.add_instance(rs.add_object(path, material_override=mat))
-    return len(spheres) * len(sf) + _add_room(rs, workdir, room_m)
-
-
-def _sphere_placements():
-    """The slice's 60 spheres as (radius, centre), drawn from SEED."""
-    rng = np.random.default_rng(SEED)
-    out = []
-    for ix in range(10):
-        for iz in range(6):
-            r = rng.uniform(0.7, 1.1)
-            c = np.array([(ix - 4.5) * 2.5, r, (iz - 2.5) * 2.5])
-            c[[0, 2]] += rng.uniform(-0.3, 0.3, 2)
-            out.append((r, c))
-    return out
-
-
-def _slice_materials_plain(rs):
-    """The untextured slice's sphere and room materials."""
-    return ([rs.add_material([0.8, 0.75, 0.7], roughness=0.35,
-                             metallic=0.2)],
-            rs.add_material([0.6, 0.62, 0.65]))
-
-
-def _add_room(rs, workdir: str, room_m: int) -> int:
-    """The slice's floor and two walls (one PLY), the bench's lamp quad,
-    the test sky and the 1080p camera. Returns their triangle count."""
-    from rfw_tpu_torch.scene import Skybox
-    room = [_grid([-20, 0, -20], np.float32([0, 0, 40]),
-                  np.float32([40, 0, 0]), 40),                   # floor
-            _grid([-20, 0, 15], np.float32([40, 0, 0]),
-                  np.float32([0, 20, 0]), 40),                   # back wall
-            _grid([-20, 0, -20], np.float32([0, 20, 0]),
-                  np.float32([0, 0, 40]), 40)]                   # left wall
-    room_ply = os.path.join(workdir, "room.ply")
-    off = np.cumsum([0] + [len(p) for p, _, _ in room])
-    pos = np.concatenate([p for p, _, _ in room])
-    nrm = np.concatenate([n for _, n, _ in room])
-    _write_ply(room_ply, pos, nrm,
-               np.concatenate([f + o for (_, _, f), o in zip(room, off)]),
-               _planar_uv(pos, nrm))
-    rs.add_instance(rs.add_object(room_ply, material_override=room_m))
-    lamp = rs.add_material([40.0, 40.0, 40.0])
-    rs.add_instance(rs.add_quad([0, -1, 0], [0, 18.0, 0], 6, 6, lamp))
-    rs.set_skybox(Skybox.test_sky())
-    rs.camera.resize(1920, 1080)
-    rs.camera.fov = 60.0
-    rs.camera.look_at([0.0, 12.0, -22.0], [0.0, 1.0, 2.0])
-    return sum(len(f) for _, _, f in room) + 2
 
 
 def build_instanced_scene(rs, workdir: str):
     """Phase 10's scene: ``build_slice_scene``'s world geometry with the
     spheres as 60 instances of one level-4 icosphere, written once as a
     PLY and loaded with add_object, each placed by ``add_instance``
-    (scale r, translation c, as ``_sphere_placements`` draws them), so
+    (scale r, translation c, as ``sphere_placements`` draws them), so
     the TLAS holds 3 BLASes (sphere, room, lamp) under 62 instances.
     Returns (triangle count, the spheres' InstanceRefs)."""
-    from rfw_tpu_torch.utils.synthetic import icosphere
-    sv, sf = icosphere(4)
+    sv, sf = synthetic.icosphere(4)
     path = os.path.join(workdir, "sphere.ply")
-    _write_ply(path, sv, sv, sf, _sphere_uv(sv))
-    (sphere_m,), room_m = _slice_materials_plain(rs)
+    synthetic.write_ply(path, sv, sv, sf, synthetic.sphere_uv(sv))
+    (sphere_m,), room_m = synthetic.slice_materials_plain(rs)
     ref = rs.add_object(path, material_override=sphere_m)
     spheres = [rs.add_instance(ref, scale=(r, r, r), translation=c)
-               for r, c in _sphere_placements()]
-    return len(spheres) * len(sf) + _add_room(rs, workdir, room_m), spheres
+               for r, c in synthetic.sphere_placements()]
+    return (len(spheres) * len(sf)
+            + synthetic.add_room(rs, workdir, room_m)), spheres
 
 
 def slice_materials(rs, size: int = 1024):
@@ -1006,7 +892,6 @@ def expansion_windows(tl, streams, diag) -> dict:
     import torch
     from rfw_tpu_torch.ops import tvisit_intersect as tv
     from rfw_tpu_torch.ops import visit_intersect as vi
-    from rfw_tpu_torch.utils import synthetic
     bounds = tv.parent_bounds(tl)
     t_p = bounds.shape[1]
     out = {}
@@ -1900,7 +1785,6 @@ def _tlas_made_up(held, spheres, eps) -> None:
     device time."""
     import torch
     from rfw_tpu_torch.bvh import tlas
-    from rfw_tpu_torch.utils import synthetic
     args, _ = held.walk[("bounce", spheres)]
     rows, o, d, state = args[:4]
     dev = o.device
@@ -3011,6 +2895,57 @@ def phase_examples(work):
     return launches, err
 
 
+BENCH_TIMEOUT = 600
+BENCH_KEYS = ("metric", "value", "unit", "ms_per_sample_median",
+              "ms_per_sample_windows", "rays_per_sample", "cache_state",
+              "setup_compile_s", "scene_build_s", "warm_session_ttfp_s",
+              "stage_ms", "device", "launches")
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 13: ``python3 bench_torch.py`` at its defaults, in a process
+    of its own (the RFW_BENCH_* variables cleared). Returns each kernel's
+    launches in the bench's timed windows. Also prints the CPU cores
+    the bench process and this one kept busy meanwhile."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RFW_BENCH_")}
+    t0, cpu0 = time.perf_counter(), os.times()
+    run = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    cpu = os.times()
+    bench_cpu = (cpu.children_user + cpu.children_system
+                 - cpu0.children_user - cpu0.children_system)
+    own_cpu = cpu.user + cpu.system - cpu0.user - cpu0.system
+    print(f"phase 13: CPU cores busy while the bench ran: the bench "
+          f"process's {bench_cpu / wall:.2f}, this process's "
+          f"{own_cpu / wall:.2f}")
+    for line in run.stderr.splitlines():
+        print(f"phase 13: {line}")
+    _check(run.returncode == 0,
+           f"bench_torch.py exited {run.returncode}:\n{run.stdout}")
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    _check(all(k in out for k in BENCH_KEYS),
+           f"bench_torch.py's line lacks {set(BENCH_KEYS) - set(out)}")
+    _check(np.isfinite(out["value"]) and out["value"] > 0,
+           f"bench_torch.py's Mrays/s {out['value']} not finite/positive")
+    _check(out["rays_per_sample"]["primary"] == 1920 * 1080,
+           f"bench_torch.py's primary rays {out['rays_per_sample']}")
+    windows = out["ms_per_sample_windows"]
+    _check(len(windows) == 3, f"bench_torch.py's windows {windows}")
+    _check(out["launches"]["enum"] > 0 and out["launches"]["visit"] > 0,
+           f"bench_torch.py's windows launched {out['launches']}")
+    _check(f"{out['device']['name']}, {out['device']['power_limit']}"
+           == card, f"bench_torch.py's card {out['device']} is not {card}")
+    print(f"phase 13: {card}: {json.dumps(out)}")
+    print(f"phase 13: bench_torch.py took {wall:.1f} s, median "
+          f"{out['ms_per_sample_median']:.1f} ms/sample, "
+          f"{out['value']:.3f} Mrays/s")
+    samples = out["samples_per_window"] * len(windows)
+    return {k: round(v * samples) for k, v in out["launches"].items()}
+
+
 def phase_build() -> dict:
     """Phase 2: ``python -m rfw_tpu_torch.native.build`` builds both
     native libraries ahead of time; then the loaders must find them and
@@ -3142,11 +3077,14 @@ def main() -> int:
         launches_12, err_12 = phase_examples(work)
     print(f"phase 12: {time.perf_counter() - t0:.1f} s; launches in the "
           f"examples' runs: {launches_12}")
+    torch.cuda.empty_cache()
+    launches_13 = phase_bench(card)
     # each kernel's launches in the timed windows of the phases whose
     # path it is: enum and visit phase 5 (visit), expand and tvisit phase
     # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas, 0),
     # the two tlas kernels phase 10; all of them in phase 11 (raster,
-    # tiles); the examples' in phase 12
+    # tiles); the examples' in phase 12; enum and visit in the bench's
+    # timed windows, phase 13
     by_phase = {"enum": {"5": launches["enum"]},
                 "visit": {"5": launches["visit"]},
                 "expand": {"6": launches["expand"]},
@@ -3160,6 +3098,9 @@ def main() -> int:
         by_phase[name]["11"] = launches_11[name]
         by_phase[name]["12"] = launches_12[name]
         launches[name] += launches_11[name] + launches_12[name]
+    for name in ("enum", "visit"):
+        by_phase[name]["13"] = launches_13[name]
+        launches[name] += launches_13[name]
     for name, e in (*err_11.items(), *err_12.items()):
         report[name]["err"] = max(report[name]["err"], e)
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")

@@ -3,14 +3,23 @@ random): a soup of small random triangles and a wide BVH deep enough to
 overflow the traversal's 64-entry stack, for checks of the traversal;
 the icosphere and the skinned glTF tube that ``chip_smoke.py``'s scenes
 and the examples' stand-ins for absent assets are built from; made-up
-parent windows and rays for checks of the child expansion."""
+parent windows and rays for checks of the child expansion; and the 1080p
+slice (``build_slice_scene``), the generated stand-in for the reference
+bench's pica-4x scene that ``bench_torch.py`` and ``chip_smoke.py``
+render. The slice's builders take a ``RenderSystem`` and load the port's
+scene modules when they are called."""
 
 from __future__ import annotations
 
 import base64
 import json
+import os
 
 import numpy as np
+
+# the seed of the 1080p slice's sphere placements (and of chip_smoke.py's
+# other generated inputs)
+SEED = 20261016
 
 
 def tri_soup(n: int, seed: int, spread: float = 4.0):
@@ -254,3 +263,129 @@ def tlas_cases(lo, hi, o, d, t, seed: int) -> dict:
             "none_cross": (up_o, up_d, far, False, False),
             "coincident_closest": (o, aim_d, far, False, True),
             "coincident_any": (o, aim_d, far, True, True)}
+
+
+# ---------------------------------------------------------------------------
+# the 1080p slice: the stand-in for the reference bench's pica-4x scene
+# ---------------------------------------------------------------------------
+
+def _grid(origin, du, dv, n: int):
+    """n x n quads spanning origin + [0,1]du + [0,1]dv, normal du x dv."""
+    s = np.linspace(0.0, 1.0, n + 1, dtype=np.float32)
+    uu, vv = np.meshgrid(s, s, indexing="ij")
+    pos = (np.asarray(origin, np.float32) + uu[..., None] * du
+           + vv[..., None] * dv).reshape(-1, 3)
+    i = np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]
+    quads = np.stack([i, i + n + 1, i + n + 2, i + 1], -1).reshape(-1, 4)
+    faces = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    nrm = np.cross(du, dv).astype(np.float32)
+    nrm /= np.linalg.norm(nrm)
+    return pos, np.broadcast_to(nrm, pos.shape), faces
+
+
+def write_ply(path, pos, nrm, faces, uv=None):
+    """Binary PLY of positions, normals and, given ``uv``, texture
+    coordinates (properties u, v)."""
+    props = ["x", "y", "z", "nx", "ny", "nz"] + (["u", "v"] if uv is not None
+                                                  else [])
+    header = (f"ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(pos)}\n"
+              + "".join(f"property float {p}\n" for p in props)
+              + f"element face {len(faces)}\n"
+              f"property list uchar int vertex_indices\nend_header\n")
+    cols = [pos, nrm] + ([uv] if uv is not None else [])
+    vert = np.concatenate(cols, axis=1).astype("<f4")
+    face = np.zeros(len(faces), dtype=[("n", "u1"), ("i", "<i4", (3,))])
+    face["n"] = 3
+    face["i"] = faces
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(vert.tobytes())
+        f.write(face.tobytes())
+
+
+def sphere_uv(unit):
+    """Spherical projection of unit-sphere vertices."""
+    u = 0.5 + np.arctan2(unit[:, 2], unit[:, 0]) / (2.0 * np.pi)
+    v = np.arccos(np.clip(unit[:, 1], -1.0, 1.0)) / np.pi
+    return np.stack([u, v], axis=1).astype(np.float32)
+
+
+def _planar_uv(pos, nrm, tile: float = 4.0):
+    """Planar projection along each vertex's dominant normal axis, one
+    texture repeat every ``tile`` units."""
+    axis = np.abs(nrm).argmax(axis=1)
+    keep = np.array([[1, 2], [0, 2], [0, 1]])[axis]
+    return (np.take_along_axis(pos, keep, axis=1) / tile).astype(np.float32)
+
+
+def build_slice_scene(rs, workdir: str, materials=None) -> int:
+    """A stand-in for the reference bench's pica-4x scene (~305k
+    triangles of closed surfaces, absent here): 60 level-4 icospheres on
+    a floor, two walls, the bench's lamp quad and test sky. The spheres
+    and the room are written as binary PLY with texture coordinates and
+    loaded with add_object, the loader path users take. Deterministic
+    from SEED. ``materials`` = (sphere material ids, room material id)
+    gives sphere i material ``i % len(sphere ids)``, one PLY per sphere
+    material; without it, one untextured material each."""
+    sv, sf = icosphere(4)
+    spheres = [sv * r + c for r, c in sphere_placements()]
+    if materials is None:
+        materials = slice_materials_plain(rs)
+    sphere_m, room_m = materials
+    for g, mat in enumerate(sphere_m):
+        group = spheres[g::len(sphere_m)]
+        path = os.path.join(workdir, f"spheres{g}.ply")
+        write_ply(path, np.concatenate(group), np.tile(sv, (len(group), 1)),
+                  np.concatenate([sf + i * len(sv)
+                                  for i in range(len(group))]),
+                  np.tile(sphere_uv(sv), (len(group), 1)))
+        rs.add_instance(rs.add_object(path, material_override=mat))
+    return len(spheres) * len(sf) + add_room(rs, workdir, room_m)
+
+
+def sphere_placements():
+    """The slice's 60 spheres as (radius, centre), drawn from SEED."""
+    rng = np.random.default_rng(SEED)
+    out = []
+    for ix in range(10):
+        for iz in range(6):
+            r = rng.uniform(0.7, 1.1)
+            c = np.array([(ix - 4.5) * 2.5, r, (iz - 2.5) * 2.5])
+            c[[0, 2]] += rng.uniform(-0.3, 0.3, 2)
+            out.append((r, c))
+    return out
+
+
+def slice_materials_plain(rs):
+    """The untextured slice's sphere and room materials."""
+    return ([rs.add_material([0.8, 0.75, 0.7], roughness=0.35,
+                             metallic=0.2)],
+            rs.add_material([0.6, 0.62, 0.65]))
+
+
+def add_room(rs, workdir: str, room_m: int) -> int:
+    """The slice's floor and two walls (one PLY), the bench's lamp quad,
+    the test sky and the 1080p camera. Returns their triangle count."""
+    from rfw_tpu_torch.scene import Skybox
+    room = [_grid([-20, 0, -20], np.float32([0, 0, 40]),
+                  np.float32([40, 0, 0]), 40),                   # floor
+            _grid([-20, 0, 15], np.float32([40, 0, 0]),
+                  np.float32([0, 20, 0]), 40),                   # back wall
+            _grid([-20, 0, -20], np.float32([0, 20, 0]),
+                  np.float32([0, 0, 40]), 40)]                   # left wall
+    room_ply = os.path.join(workdir, "room.ply")
+    off = np.cumsum([0] + [len(p) for p, _, _ in room])
+    pos = np.concatenate([p for p, _, _ in room])
+    nrm = np.concatenate([n for _, n, _ in room])
+    write_ply(room_ply, pos, nrm,
+              np.concatenate([f + o for (_, _, f), o in zip(room, off)]),
+              _planar_uv(pos, nrm))
+    rs.add_instance(rs.add_object(room_ply, material_override=room_m))
+    lamp = rs.add_material([40.0, 40.0, 40.0])
+    rs.add_instance(rs.add_quad([0, -1, 0], [0, 18.0, 0], 6, 6, lamp))
+    rs.set_skybox(Skybox.test_sky())
+    rs.camera.resize(1920, 1080)
+    rs.camera.fov = 60.0
+    rs.camera.look_at([0.0, 12.0, -22.0], [0.0, 1.0, 2.0])
+    return sum(len(f) for _, _, f in room) + 2

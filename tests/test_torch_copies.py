@@ -24,7 +24,6 @@ from rfw_tpu.bvh import builder as j_builder
 from rfw_tpu.scene import skybox as j_skybox
 from rfw_tpu.scene import texture as j_texture
 
-import chip_smoke
 import test_fbx
 import test_loaders
 import rfw_tpu_torch.scene as scene
@@ -118,7 +117,7 @@ def _write_gltf(path, pos, nrm, faces):
         json.dump(doc, f)
 
 
-WRITERS = {"ply": chip_smoke._write_ply, "obj": _write_obj,
+WRITERS = {"ply": synthetic.write_ply, "obj": _write_obj,
            "stl": _write_stl, "gltf": _write_gltf}
 
 

@@ -54,6 +54,7 @@ from rfw_tpu_torch.scene import HostMaterial, MaterialList, Skybox, make_quad
 from rfw_tpu_torch.scene.lights import PointLight, pack_lights
 from rfw_tpu_torch.scene.mesh import build_triangles
 from rfw_tpu_torch.system import RenderSystem
+from rfw_tpu_torch.utils import synthetic
 from rfw_tpu_torch.utils.synthetic import write_skinned_gltf
 
 
@@ -81,8 +82,8 @@ def _wavy(build, shift=0.0, bend=0.0):
     """A 12x12 grid (288 triangles) standing at z = 0.5, rippled along
     x; ``shift`` moves the ripple's phase and ``bend`` tilts its top:
     one topology, many shapes."""
-    pos, _, faces = chip_smoke._grid([-1.5, 0.0, 0.5], np.float32([3, 0, 0]),
-                                     np.float32([0, 2, 0]), 12)
+    pos, _, faces = synthetic._grid([-1.5, 0.0, 0.5], np.float32([3, 0, 0]),
+                                    np.float32([0, 2, 0]), 12)
     pos = pos.copy()
     pos[:, 2] += 0.15 * np.sin(3.0 * pos[:, 0] + shift) + bend * pos[:, 1]
     return build(pos, faces)
@@ -437,8 +438,8 @@ def test_prewarm_instance_moves_keeps_state(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def _instances(sd, build, wavy_kw, xf):
-    floor = chip_smoke._grid([-4.0, 0.0, -4.0], np.float32([0, 0, 8]),
-                             np.float32([8, 0, 0]), 16)
+    floor = synthetic._grid([-4.0, 0.0, -4.0], np.float32([0, 0, 8]),
+                            np.float32([8, 0, 0]), 16)
     return [sd.InstancedMesh(triangles=build(floor[0], floor[2]),
                              transform=np.eye(4, dtype=np.float32),
                              instance_id=0, mesh_slot=0),

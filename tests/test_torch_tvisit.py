@@ -337,7 +337,7 @@ def test_lone_ray_hits_padded_wall(mod):
     interval collapses to ent == ext. The closed slab test keeps the hit
     for a ray that no other ray of its block helps (rfw_tpu's strict test
     reports a miss here)."""
-    from chip_smoke import _grid
+    from rfw_tpu_torch.utils.synthetic import _grid
     pos, _, faces = _grid([-20, 0, 15], np.float32([40, 0, 0]),
                           np.float32([0, 20, 0]), 40)
     inst = scene_data.InstancedMesh(
