@@ -1,0 +1,9 @@
+"""device_idle.converge (%): the share of the traced iterations' window in
+which no kernel, copy or memset runs on the card (the profiler's device
+intervals merged), in the converge cells."""
+
+from perfbench.lib import trace
+
+
+def read(run):
+    return trace.idle_percent(run)
