@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils import tracing
 from .. import fmath
 from .common import (INV2PI, INVPI, TWOPI, diffuse_reflection_cos_weighted,
                      diffuse_reflection_uniform, dot3, fr, gtr1, gtr2, lerp,
@@ -135,9 +136,11 @@ def bsdf_sample(sd, t_vec, b_vec, n, wo, r3, r4, t_dist, backfacing):
     subsurface = sd["subsurface"]
     r2d = r4 * 2.0
     r5_ss = r2d / torch.clamp(subsurface, min=1e-9)
-    # the subsurface sample goes below the surface
-    d_ss = diffuse_reflection_uniform(r1, r5_ss) \
-        * r1.new_tensor([1.0, 1.0, -1.0])
+    # the subsurface sample goes below the surface; a tensor made from a
+    # list is a host-to-device copy that waits for the device
+    with tracing.span("sync.disney_const"):
+        below = r1.new_tensor([1.0, 1.0, -1.0])
+    d_ss = diffuse_reflection_uniform(r1, r5_ss) * below
     r5_cos = (r2d - subsurface) / torch.clamp(1.0 - subsurface, min=1e-9)
     d_cos = diffuse_reflection_cos_weighted(r1, r5_cos)
     take_ss = r2d < subsurface

@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from . import cuda_lib
 from .cuda_lib import check_inputs, launch_counts, ptr
 from .compaction import ray_sort_keys
@@ -385,8 +386,10 @@ def real_cells(lo) -> int:
     past FAR_BOX on every axis), the condition under which the enum
     kernel may skip them."""
     far = (lo >= FAR_BOX).all(1)
-    n = int((~far).sum())
-    if not bool(far[n:].all()):
+    with tracing.span("sync.real_cells"):
+        n = int((~far).sum())
+        padded_far = bool(far[n:].all())
+    if not padded_far:
         raise ValueError("padding cells are not all far boxes after the "
                          "real cells: the enum kernel cannot skip them")
     return n
@@ -464,7 +467,9 @@ def trace_passes(origins, directions, t_max, bounds8, n_real: int, diag,
     best_slot = torch.full((n,), -1, dtype=torch.int32, device=t_max.device)
     finished = t_max <= 0
     for it in range(keys_all.shape[1] // m_c):
-        if bool(finished.all()):
+        with tracing.span("sync.visit_pass"):
+            done = bool(finished.all())
+        if done:
             break
         t_hi = torch.minimum(t_max, best_t)
         if any_hit:

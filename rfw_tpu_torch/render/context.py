@@ -42,10 +42,6 @@ class RenderStats:
     primary_time: float = 0.0
     secondary_time: float = 0.0
     deep_time: float = 0.0
-    shadow_time: float = 0.0
-    shade_time: float = 0.0
-    finalize_time: float = 0.0
-    animation_time: float = 0.0
     render_time: float = 0.0
 
     def clear(self) -> None:

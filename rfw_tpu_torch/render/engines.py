@@ -50,7 +50,7 @@ from ..scene.lights import pack_lights
 from ..scene.materials import MaterialList
 from ..scene.mesh import TriangleSoA
 from ..scene.skybox import Skybox
-from ..utils import Timer, logger
+from ..utils import Timer, logger, tracing
 from . import scene_data
 from .context import (EngineContext, RenderSetting, RenderStatus,
                       register_engine, resolve_device)
@@ -224,7 +224,8 @@ class PathTracerEngine(EngineContext):
                 self._geo, instances, self._perm_host, self.config)
         self._device_refit(self._device_slot_planes(instances),
                            [im.transform for im in instances])
-        _sync(self.device)
+        with tracing.span("sync.prewarm"):
+            _sync(self.device)
 
     def _uses_device_refit(self) -> bool:
         """The device refit leaves the wide BVH and the TLAS tables as
@@ -311,53 +312,52 @@ class PathTracerEngine(EngineContext):
             return
         if not self._meshes:
             raise RuntimeError("no meshes uploaded")
-        self._replicas.clear()
-        if self._lights is None:
-            self._lights = pack_lights([], [], [], [])
-        if self._materials is None:
-            self._materials = MaterialList().generate_device_materials()
-        instances = self._instance_list()
-        overrides = tuple(sorted(self._light_overrides.items()))
-        structure_key = (
-            tuple((im.instance_id, im.mesh_slot,
-                   self._mesh_versions.get(im.mesh_slot, 0))
-                  for im in instances), overrides)
-        geo_key = (structure_key,
-                   tuple(im.transform.tobytes() for im in instances))
-        # the structure without mesh versions, plus the triangle counts:
-        # when it holds, a version bump is a deformation of one topology
-        anim_key = (tuple((im.instance_id, im.mesh_slot) for im in instances),
-                    overrides,
-                    tuple(im.triangles.vertices.shape[0] for im in instances))
-        if geo_key != self._geo_key:
-            timer = Timer()
-            geo = self._refit(instances, anim_key, structure_key)
-            what = "refit"
-            if geo is None:
-                what = "build"
-                built = scene_data.build_device_scene_cached(
-                    instances, None, None, None, None, self.config,
-                    area_light_overrides=self._light_overrides,
-                    shape_caps=self._shape_caps)
-                self._perm_host = built.pop("_perm_host")
-                self._bvh_host = built.pop("_bvh_host")
-                self._pack_host = built.pop("_pack_host")
-                for k in ("materials", "lights", "atlas", "atlas_desc"):
-                    built.pop(k)
-                geo = scene_data.scene_to_torch(built, self.device)
-                self._refits = 0
-                self._device_refit = None
-            self._geo = geo
-            self._geo_key = geo_key
-            self._anim_key = anim_key
-            logger.debug("scene %s: %d tris, %.1f ms", what,
-                         geo["tri_vertices"].shape[0], timer.elapsed_ms())
-        self._scene = {**self._geo, **self._textures(), **self._aux_tables()}
-        self._dirty = False
-        # scene changed: restart accumulation (a CONVERGE frame must not
-        # divide the old scene's radiance by the restarted count)
-        self._sample_count = 0
-        self._accumulator = None
+        with tracing.span("engine.update"):
+            self._replicas.clear()
+            if self._lights is None:
+                self._lights = pack_lights([], [], [], [])
+            if self._materials is None:
+                self._materials = MaterialList().generate_device_materials()
+            instances = self._instance_list()
+            overrides = tuple(sorted(self._light_overrides.items()))
+            structure_key = (
+                tuple((im.instance_id, im.mesh_slot,
+                       self._mesh_versions.get(im.mesh_slot, 0))
+                      for im in instances), overrides)
+            geo_key = (structure_key,
+                       tuple(im.transform.tobytes() for im in instances))
+            # the structure without mesh versions, plus the triangle counts:
+            # when it holds, a version bump is a deformation of one topology
+            anim_key = (
+                tuple((im.instance_id, im.mesh_slot) for im in instances),
+                overrides,
+                tuple(im.triangles.vertices.shape[0] for im in instances))
+            if geo_key != self._geo_key:
+                tracing.count("updates")
+                geo = self._refit(instances, anim_key, structure_key)
+                if geo is None:
+                    built = scene_data.build_device_scene_cached(
+                        instances, None, None, None, None, self.config,
+                        area_light_overrides=self._light_overrides,
+                        shape_caps=self._shape_caps)
+                    self._perm_host = built.pop("_perm_host")
+                    self._bvh_host = built.pop("_bvh_host")
+                    self._pack_host = built.pop("_pack_host")
+                    for k in ("materials", "lights", "atlas", "atlas_desc"):
+                        built.pop(k)
+                    geo = scene_data.scene_to_torch(built, self.device)
+                    self._refits = 0
+                    self._device_refit = None
+                self._geo = geo
+                self._geo_key = geo_key
+                self._anim_key = anim_key
+            self._scene = {**self._geo, **self._textures(),
+                           **self._aux_tables()}
+            self._dirty = False
+            # scene changed: restart accumulation (a CONVERGE frame must not
+            # divide the old scene's radiance by the restarted count)
+            self._sample_count = 0
+            self._accumulator = None
 
     def _textures(self) -> dict:
         """The atlas tables on the device, uploaded once per
@@ -436,53 +436,57 @@ class PathTracerEngine(EngineContext):
         if self._pending is not None:
             raise RuntimeError("render_frame_async while a frame is in "
                                "flight; call finish_frame() first")
-        width, height = self._size
-        if width <= 0:
-            raise RuntimeError("call resize(w, h) first")
-        self.update()
-        step = self._get_step(width, height)
-        n = width * height
-        if (status == RenderStatus.RESET or self._accumulator is None
-                or self._accumulator.shape[0] != n):
-            self._accumulator = torch.zeros((n, 3), device=self.device)
-            self._sample_count = 0
-        view_t = {k: torch.as_tensor(np.asarray(v, np.float32),
-                                     device=self.device)
-                  for k, v in view.items()}
-        probe_index = self._probe_xy[1] * width + self._probe_xy[0]
-        timer = Timer()
-        drv = self._driver
-        profiled = (drv is not None and samples > 1
-                    and self.config.profile_stages)
-        if profiled:
-            # the last sample runs with a sync per depth, which fills the
-            # per-stage times of RenderStats; the frame is the same
-            acc, _, _, _ = drv.step_multi(
-                self._scene, self._accumulator, view_t, self._sample_count,
-                probe_index, samples - 1, with_aux=False)
-            acc, probe, stats, aux = drv.step_profiled(
-                self._scene, acc, view_t, self._sample_count + samples - 1,
-                probe_index, with_aux=self._denoise)
-        elif drv is not None:
-            acc, probe, stats, aux = drv.step_multi(
-                self._scene, self._accumulator, view_t, self._sample_count,
-                probe_index, samples, with_aux=self._denoise)
-        else:
-            # the denoiser's guide planes: the last sample's, and only
-            # when it runs
-            acc = self._accumulator
-            for s in range(samples):
-                acc, probe, stats, aux = step(
-                    self._scene, acc, view_t, self._sample_count + s,
-                    probe_index,
-                    with_aux=self._denoise and s == samples - 1)
-        self._accumulator = acc
-        self._sample_count += samples
-        # the frame keeps its own accumulator and count: a scene update
-        # while it is in flight restarts the accumulation for the next
-        # frame, not this one
-        self._pending = (probe, stats, aux, timer, profiled, acc,
-                         self._sample_count)
+        with tracing.span("engine.render"):
+            width, height = self._size
+            if width <= 0:
+                raise RuntimeError("call resize(w, h) first")
+            self.update()
+            step = self._get_step(width, height)
+            n = width * height
+            if (status == RenderStatus.RESET or self._accumulator is None
+                    or self._accumulator.shape[0] != n):
+                self._accumulator = torch.zeros((n, 3), device=self.device)
+                self._sample_count = 0
+            # host-to-device copies, each of which waits for the device
+            with tracing.span("sync.view"):
+                view_t = {k: torch.as_tensor(np.asarray(v, np.float32),
+                                             device=self.device)
+                          for k, v in view.items()}
+            probe_index = self._probe_xy[1] * width + self._probe_xy[0]
+            timer = Timer()
+            drv = self._driver
+            profiled = (drv is not None and samples > 1
+                        and self.config.profile_stages)
+            if profiled:
+                # the last sample runs with a sync per depth, which fills the
+                # per-stage times of RenderStats; the frame is the same
+                acc, _, _, _ = drv.step_multi(
+                    self._scene, self._accumulator, view_t, self._sample_count,
+                    probe_index, samples - 1, with_aux=False)
+                acc, probe, stats, aux = drv.step_profiled(
+                    self._scene, acc, view_t, self._sample_count + samples - 1,
+                    probe_index, with_aux=self._denoise)
+            elif drv is not None:
+                acc, probe, stats, aux = drv.step_multi(
+                    self._scene, self._accumulator, view_t, self._sample_count,
+                    probe_index, samples, with_aux=self._denoise)
+            else:
+                # the denoiser's guide planes: the last sample's, and only
+                # when it runs
+                acc = self._accumulator
+                for s in range(samples):
+                    acc, probe, stats, aux = step(
+                        self._scene, acc, view_t, self._sample_count + s,
+                        probe_index,
+                        with_aux=self._denoise and s == samples - 1)
+            self._accumulator = acc
+            self._sample_count += samples
+            tracing.count("samples", samples)
+            # the frame keeps its own accumulator and count: a scene update
+            # while it is in flight restarts the accumulation for the next
+            # frame, not this one
+            self._pending = (probe, stats, aux, timer, profiled, acc,
+                             self._sample_count)
 
     def finish_frame(self) -> np.ndarray:
         """Wait for the dispatched frame, fill stats, return resolved HDR
@@ -492,43 +496,49 @@ class PathTracerEngine(EngineContext):
             raise RuntimeError("finish_frame without a frame in flight")
         probe, stats, aux, timer, profiled, acc, count = self._pending
         self._pending = None
-        _sync(self.device)
-        elapsed = timer.elapsed()
-        keys = sorted(stats)
-        flat = torch.cat([torch.stack([torch.as_tensor(
-            stats[k], device=self.device).double() for k in keys]),
-            probe.double()]).cpu().numpy()
-        s = {k: int(flat[i]) for i, k in enumerate(keys)}
-        self.stats.primary_count = s.get("ray_count_0", 0)
-        self.stats.secondary_count = s.get("ray_count_1", 0)
-        self.stats.deep_count = sum(
-            v for k, v in s.items()
-            if k.startswith("ray_count_") and int(k.split("_")[-1]) >= 2)
-        self.stats.shadow_count = sum(
-            v for k, v in s.items() if k.startswith("shadow_count_"))
-        self.stats.render_time = elapsed
-        if profiled:
-            dt = self._driver.depth_times
-            self.stats.primary_time = dt[0]
-            self.stats.secondary_time = dt[1] if len(dt) > 1 else 0.0
-            self.stats.deep_time = sum(dt[2:])
-        nan_ct = sum(v for k, v in s.items() if k.startswith("nan_scrubbed"))
-        if nan_ct:
-            logger.warning("debug_checks: %d NaN contributions scrubbed "
-                           "this frame", nan_ct)
-        p = flat[len(keys):]
-        self._probe_result = (int(p[0]), int(p[1]), float(p[2]))
-        width, height = self._size
-        frame = resolve_accumulator(acc, count)
-        frame = frame.reshape(height, width, 3)
-        if self._denoise and aux is not None:
-            if self._driver is not None:
-                # the compacted driver keeps aux in its lanes' order
-                aux = self._driver.aux_inverse(aux)
-            frame = atrous_denoise(
-                frame, aux["normal"].reshape(height, width, 3),
-                aux["depth"].reshape(height, width))
-        return frame.cpu().numpy()
+        with tracing.span("engine.finish_frame"):
+            with tracing.span("sync.finish"):
+                _sync(self.device)
+            elapsed = timer.elapsed()
+            keys = sorted(stats)
+            flat = torch.cat([torch.stack([torch.as_tensor(
+                stats[k], device=self.device).double() for k in keys]),
+                probe.double()])
+            with tracing.span("sync.stats"):
+                flat = flat.cpu().numpy()
+            s = {k: int(flat[i]) for i, k in enumerate(keys)}
+            self.stats.primary_count = s.get("ray_count_0", 0)
+            self.stats.secondary_count = s.get("ray_count_1", 0)
+            self.stats.deep_count = sum(
+                v for k, v in s.items()
+                if k.startswith("ray_count_") and int(k.split("_")[-1]) >= 2)
+            self.stats.shadow_count = sum(
+                v for k, v in s.items() if k.startswith("shadow_count_"))
+            self.stats.render_time = elapsed
+            if profiled:
+                dt = self._driver.depth_times
+                self.stats.primary_time = dt[0]
+                self.stats.secondary_time = dt[1] if len(dt) > 1 else 0.0
+                self.stats.deep_time = sum(dt[2:])
+            nan_ct = sum(v for k, v in s.items()
+                         if k.startswith("nan_scrubbed"))
+            if nan_ct:
+                logger.warning("debug_checks: %d NaN contributions scrubbed "
+                               "this frame", nan_ct)
+            p = flat[len(keys):]
+            self._probe_result = (int(p[0]), int(p[1]), float(p[2]))
+            width, height = self._size
+            frame = resolve_accumulator(acc, count)
+            frame = frame.reshape(height, width, 3)
+            if self._denoise and aux is not None:
+                if self._driver is not None:
+                    # the compacted driver keeps aux in its lanes' order
+                    aux = self._driver.aux_inverse(aux)
+                frame = atrous_denoise(
+                    frame, aux["normal"].reshape(height, width, 3),
+                    aux["depth"].reshape(height, width))
+            with tracing.span("sync.frame"):
+                return frame.cpu().numpy()
 
     def get_render_state(self):
         """(accumulator (N, 3) float32 numpy, sample count), or None

@@ -23,6 +23,7 @@ from ..ops.bsdf import get as get_bsdf
 from ..ops.bsdf.common import (clamp_intensity, dot3, safe_origin,
                                survival_probability)
 from ..ops.shade import get_shading_data
+from ..utils import tracing
 
 
 class Intersector(NamedTuple):
@@ -177,189 +178,195 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
     prim = torch.where(alive, prim, -1)
     stats["ray_count"] = alive.sum()
 
-    miss = prim < 0
-    env_nee_active = (config.envmap_nee and config.variance_reduction
-                      and "skybox" in scene and "pdf" in scene["skybox"])
+    with tracing.span("stage.shade"):
+        miss = prim < 0
+        env_nee_active = (config.envmap_nee and config.variance_reduction
+                          and "skybox" in scene and "pdf" in scene["skybox"])
 
-    def env_depth_ok(d: int) -> bool:
-        return config.envmap_nee_max_depth < 0 or \
-            d <= config.envmap_nee_max_depth
+        def env_depth_ok(d: int) -> bool:
+            return config.envmap_nee_max_depth < 0 or \
+                d <= config.envmap_nee_max_depth
 
-    # skybox on miss, MIS-weighted against the previous vertex's envmap
-    # NEE (a specular bounce shot none)
-    if env_nee_active and depth > 0 and env_depth_ok(depth - 1):
-        sky, e_pdf = sample_skybox_with_pdf(scene, direction)
-        denom_m = torch.where(spec_bounce, last_pdf, last_pdf + e_pdf)
-    else:
-        sky = sample_skybox(scene, direction)
-        denom_m = last_pdf
-    contrib = throughput * sky / torch.clamp(denom_m, min=1e-20)[..., None]
-    contrib = clamp_intensity(_scrub(contrib, alive & miss, stats, config),
-                              clamp_v)
-    radiance = radiance + torch.where((alive & miss)[..., None], contrib, 0.0)
-    alive = alive & ~miss
-    prim_safe = torch.clamp(prim, min=0).long()
+        # skybox on miss, MIS-weighted against the previous vertex's envmap
+        # NEE (a specular bounce shot none)
+        if env_nee_active and depth > 0 and env_depth_ok(depth - 1):
+            sky, e_pdf = sample_skybox_with_pdf(scene, direction)
+            denom_m = torch.where(spec_bounce, last_pdf, last_pdf + e_pdf)
+        else:
+            sky = sample_skybox(scene, direction)
+            denom_m = last_pdf
+        contrib = throughput * sky / torch.clamp(denom_m, min=1e-20)[..., None]
+        contrib = clamp_intensity(_scrub(contrib, alive & miss, stats, config),
+                                  clamp_v)
+        radiance = radiance + torch.where((alive & miss)[..., None],
+                                          contrib, 0.0)
+        alive = alive & ~miss
+        prim_safe = torch.clamp(prim, min=0).long()
 
-    hit_pos = origin + direction * t[..., None]
-    cone_width = view["spread_angle"] * t
-    stoch_seed = None
-    if config.texture_filter == "stochastic" and (
-            tex_flags is None or any(tex_flags.values())):
-        # a salted stream of its own for the one-tap texture fetches
-        stoch_seed = rng.wang_hash(rng.path_seed(pid_l, sample_index, depth)
-                                   ^ 0x7FEB352D)
-    sd, n_geom, i_n, t_vec, b_vec, alpha_cut = get_shading_data(
-        scene, prim_safe, u, v, direction, cone_width, tex_flags=tex_flags,
-        tex_filter=config.texture_filter, stoch_seed=stoch_seed)
-    alpha_cut = alpha_cut & alive
+        hit_pos = origin + direction * t[..., None]
+        cone_width = view["spread_angle"] * t
+        stoch_seed = None
+        if config.texture_filter == "stochastic" and (
+                tex_flags is None or any(tex_flags.values())):
+            # a salted stream of its own for the one-tap texture fetches
+            stoch_seed = rng.wang_hash(
+                rng.path_seed(pid_l, sample_index, depth) ^ 0x7FEB352D)
+        sd, n_geom, i_n, t_vec, b_vec, alpha_cut = get_shading_data(
+            scene, prim_safe, u, v, direction, cone_width, tex_flags=tex_flags,
+            tex_filter=config.texture_filter, stoch_seed=stoch_seed)
+        alpha_cut = alpha_cut & alive
 
-    if depth == 0:
-        if with_aux:
-            aux = {"normal": torch.where(miss[..., None], 0.0, i_n),
-                   "depth": torch.where(miss, 0.0, t)}
-        probe_prim = prim_safe[probe_lane]
-        probe = torch.stack([
-            scene["tri_instance"][probe_prim].to(torch.float32),
-            scene["tri_prim"][probe_prim].to(torch.float32),
-            torch.where(miss[probe_lane], -1.0, t[probe_lane])])
+        if depth == 0:
+            if with_aux:
+                aux = {"normal": torch.where(miss[..., None], 0.0, i_n),
+                       "depth": torch.where(miss, 0.0, t)}
+            probe_prim = prim_safe[probe_lane]
+            # indexing by a 0-d device tensor reads it to the host
+            with tracing.span("sync.probe"):
+                probe = torch.stack([
+                    scene["tri_instance"][probe_prim].to(torch.float32),
+                    scene["tri_prim"][probe_prim].to(torch.float32),
+                    torch.where(miss[probe_lane], -1.0, t[probe_lane])])
 
-    # emissive hit terminates the path
-    emissive = (sd["color"] > 1.0).any(-1) & ~alpha_cut
-    d_dot_nl = -dot3(direction, n_geom)
-    if depth == 0:
-        e_contrib = sd["color"]
-    elif not config.variance_reduction:
-        e_contrib = throughput * sd["color"] \
-            / torch.clamp(last_pdf, min=1e-20)[..., None]
-    else:
-        row = scene["tri_pack"][prim_safe]
-        light_pdf = light_sampling.calculate_light_pdf(
-            direction, t, row[:, 26], n_geom)
-        pick_prob = light_sampling.light_pick_prob(
-            row[:, 27].long(), lights, origin, last_n, hit_pos)
-        denom = last_pdf + light_pdf * pick_prob
-        mis_c = throughput * sd["color"] \
-            / torch.clamp(denom, min=1e-20)[..., None]
-        mis_c = torch.where((denom > 0)[..., None], mis_c, 0.0)
-        spec_c = throughput * sd["color"] \
-            / torch.clamp(last_pdf, min=1e-20)[..., None]
-        e_contrib = torch.where(spec_bounce[..., None], spec_c, mis_c)
-    e_contrib = torch.where((d_dot_nl > 0)[..., None], e_contrib, 0.0)
-    e_contrib = clamp_intensity(
-        _scrub(e_contrib, alive & emissive, stats, config), clamp_v)
-    radiance = radiance + torch.where((alive & emissive)[..., None],
-                                      e_contrib, 0.0)
-    alive = alive & ~emissive
+        # emissive hit terminates the path
+        emissive = (sd["color"] > 1.0).any(-1) & ~alpha_cut
+        d_dot_nl = -dot3(direction, n_geom)
+        if depth == 0:
+            e_contrib = sd["color"]
+        elif not config.variance_reduction:
+            e_contrib = throughput * sd["color"] \
+                / torch.clamp(last_pdf, min=1e-20)[..., None]
+        else:
+            row = scene["tri_pack"][prim_safe]
+            light_pdf = light_sampling.calculate_light_pdf(
+                direction, t, row[:, 26], n_geom)
+            pick_prob = light_sampling.light_pick_prob(
+                row[:, 27].long(), lights, origin, last_n, hit_pos)
+            denom = last_pdf + light_pdf * pick_prob
+            mis_c = throughput * sd["color"] \
+                / torch.clamp(denom, min=1e-20)[..., None]
+            mis_c = torch.where((denom > 0)[..., None], mis_c, 0.0)
+            spec_c = throughput * sd["color"] \
+                / torch.clamp(last_pdf, min=1e-20)[..., None]
+            e_contrib = torch.where(spec_bounce[..., None], spec_c, mis_c)
+        e_contrib = torch.where((d_dot_nl > 0)[..., None], e_contrib, 0.0)
+        e_contrib = clamp_intensity(
+            _scrub(e_contrib, alive & emissive, stats, config), clamp_v)
+        radiance = radiance + torch.where((alive & emissive)[..., None],
+                                          e_contrib, 0.0)
+        alive = alive & ~emissive
 
-    # face normals toward the ray; apply the postponed pdf
-    flip = torch.where(dot3(direction, n_geom) > 0, -1.0, 1.0)
-    n_geom = n_geom * flip[..., None]
-    i_n = i_n * flip[..., None]
-    backfacing = flip < 0
-    throughput_predpdf = throughput
-    throughput = throughput / torch.clamp(last_pdf, min=1e-20)[..., None]
+        # face normals toward the ray; apply the postponed pdf
+        flip = torch.where(dot3(direction, n_geom) > 0, -1.0, 1.0)
+        n_geom = n_geom * flip[..., None]
+        i_n = i_n * flip[..., None]
+        backfacing = flip < 0
+        throughput_predpdf = throughput
+        throughput = throughput / torch.clamp(last_pdf, min=1e-20)[..., None]
 
     spec_mat = sd["roughness"] < config.min_roughness
     # salted stream: the unsalted seed is the primary-ray seed
     seed = rng.wang_hash(rng.path_seed(pid_l, sample_index, depth)
                          ^ 0x9E3779B9)
 
-    if config.variance_reduction:
-        if bn is not None:
-            # a distinct blue-noise dimension pair per depth
-            d0_, d1_ = 4 + 2 * depth, 5 + 2 * depth
-            if bn.ndim == 3:
-                brow = rng.blue_noise_shift_row(bn, px, py)
-                nd = bn.shape[2]
-                r0 = rng.blue_noise_from_shift(brow[:, d0_ % nd],
-                                               sample_index, d0_)
-                r1 = rng.blue_noise_from_shift(brow[:, d1_ % nd],
-                                               sample_index, d1_)
-            else:
-                r0 = rng.blue_noise_sample(bn, px, py, sample_index, d0_)
-                r1 = rng.blue_noise_sample(bn, px, py, sample_index, d1_)
-            seed, (h0, h1) = rng.random_floats(seed, 2)
-            if sample_index >= config.blue_noise_spp_cutoff:
-                r0, r1 = h0, h1
-        else:
-            seed, (r0, r1) = rng.random_floats(seed, 2)
-        ls = light_sampling.random_point_on_light(
-            lights, r0, r1, hit_pos, i_n,
-            importance_sample=config.importance_sample_lights)
-        l_vec = ls["position"] - hit_pos
-        dist = torch.sqrt(torch.clamp(dot3(l_vec, l_vec), min=1e-20))
-        l_dir = l_vec / dist[..., None]
-        n_dot_l = dot3(l_dir, i_n)
-        s_val, s_pdf = bsdf.evaluate_bsdf(sd, i_n, t_vec, b_vec, -direction,
-                                          l_dir)
-        # MIS with BSDF sampling only for area lights
-        denom = (torch.where(ls["is_delta"], 0.0, s_pdf)
-                 + ls["light_pdf"] * ls["pick_prob"])
-        nee = (throughput * s_val * ls["radiance"]
-               * (n_dot_l / torch.clamp(denom, min=1e-20))[..., None])
-        want_shadow = (alive & ~spec_mat & ~alpha_cut & (n_dot_l > 0)
-                       & (ls["light_pdf"] > 0) & (s_pdf > 0))
-        nee = clamp_intensity(_scrub(nee, want_shadow, stats, config),
-                              clamp_v)
-        s_origin = safe_origin(hit_pos, n_geom)
-        s_dist = torch.where(want_shadow,
-                             dist - 2.0 * config.geometry_epsilon, 0.0)
-        stats["shadow_count"] = want_shadow.sum()
-
-        if env_nee_active and env_depth_ok(depth):
-            il = config.env_nee_interleave
-            if il > 1:
-                # interleaved sampling: one env sample per tb x tb image
-                # tile, keyed by absolute pixel coords
-                tb = max(int(round(il ** 0.5)), 1)
-                tiles_x = (width + tb - 1) // tb
-                if height is not None:
-                    # evaluate the tile table once, gather per lane
-                    tiles_y = (height + tb - 1) // tb
-                    tid = torch.arange(tiles_x * tiles_y, device=pid.device)
-                    _, re_t = rng.random_float(rng.wang_hash(
-                        rng.path_seed(tid, sample_index, depth)
-                        ^ 0x517CC1B7))
-                    ed_t, ep_t, er_t = sample_envmap(scene, re_t)
-                    gid = (py // tb) * tiles_x + px // tb
-                    e_dir, e_pdf, e_rad = ed_t[gid], ep_t[gid], er_t[gid]
+    with tracing.span("stage.nee"):
+        if config.variance_reduction:
+            if bn is not None:
+                # a distinct blue-noise dimension pair per depth
+                d0_, d1_ = 4 + 2 * depth, 5 + 2 * depth
+                if bn.ndim == 3:
+                    brow = rng.blue_noise_shift_row(bn, px, py)
+                    nd = bn.shape[2]
+                    r0 = rng.blue_noise_from_shift(brow[:, d0_ % nd],
+                                                   sample_index, d0_)
+                    r1 = rng.blue_noise_from_shift(brow[:, d1_ % nd],
+                                                   sample_index, d1_)
                 else:
-                    gid = (py // tb) * tiles_x + px // tb
-                    _, re = rng.random_float(rng.wang_hash(
-                        rng.path_seed(gid, sample_index, depth)
-                        ^ 0x517CC1B7))
-                    e_dir, e_pdf, e_rad = sample_envmap(scene, re)
+                    r0 = rng.blue_noise_sample(bn, px, py, sample_index, d0_)
+                    r1 = rng.blue_noise_sample(bn, px, py, sample_index, d1_)
+                seed, (h0, h1) = rng.random_floats(seed, 2)
+                if sample_index >= config.blue_noise_spp_cutoff:
+                    r0, r1 = h0, h1
             else:
-                seed, re = rng.random_float(seed)
-                e_dir, e_pdf, e_rad = sample_envmap(scene, re)
-            e_cos = dot3(e_dir, i_n)
-            eb_val, eb_pdf = bsdf.evaluate_bsdf(sd, i_n, t_vec, b_vec,
-                                                -direction, e_dir)
-            e_contrib = (throughput * eb_val * e_rad
-                         * (e_cos / torch.clamp(e_pdf + eb_pdf,
-                                                min=1e-20))[..., None])
-            e_want = (alive & ~spec_mat & ~alpha_cut & (e_cos > 0)
-                      & (e_pdf > 0) & (eb_pdf > 0))
-            e_contrib = clamp_intensity(
-                _scrub(e_contrib, e_want, stats, config), clamp_v)
-            stats["shadow_count"] = stats["shadow_count"] + e_want.sum()
-            # one fused occlusion launch for light + envmap shadow rays;
-            # depth-0 blocks arrive coherent, so only bounces sort
-            occ2 = intersector.occluded(
-                scene, torch.cat([s_origin, s_origin]),
-                torch.cat([l_dir, e_dir]),
-                torch.cat([s_dist, torch.where(e_want, 1e30, 0.0)]),
-                sort=depth > 0, coherent=False)
-            occ, e_occ = occ2[:n], occ2[n:]
-            radiance = radiance + torch.where((want_shadow & ~occ)[..., None],
-                                              nee, 0.0)
-            radiance = radiance + torch.where((e_want & ~e_occ)[..., None],
-                                              e_contrib, 0.0)
-        else:
-            occ = intersector.occluded(scene, s_origin, l_dir, s_dist,
-                                       sort=depth > 0, coherent=depth == 0)
-            radiance = radiance + torch.where((want_shadow & ~occ)[..., None],
-                                              nee, 0.0)
+                seed, (r0, r1) = rng.random_floats(seed, 2)
+            ls = light_sampling.random_point_on_light(
+                lights, r0, r1, hit_pos, i_n,
+                importance_sample=config.importance_sample_lights)
+            l_vec = ls["position"] - hit_pos
+            dist = torch.sqrt(torch.clamp(dot3(l_vec, l_vec), min=1e-20))
+            l_dir = l_vec / dist[..., None]
+            n_dot_l = dot3(l_dir, i_n)
+            s_val, s_pdf = bsdf.evaluate_bsdf(sd, i_n, t_vec, b_vec,
+                                              -direction, l_dir)
+            # MIS with BSDF sampling only for area lights
+            denom = (torch.where(ls["is_delta"], 0.0, s_pdf)
+                     + ls["light_pdf"] * ls["pick_prob"])
+            nee = (throughput * s_val * ls["radiance"]
+                   * (n_dot_l / torch.clamp(denom, min=1e-20))[..., None])
+            want_shadow = (alive & ~spec_mat & ~alpha_cut & (n_dot_l > 0)
+                           & (ls["light_pdf"] > 0) & (s_pdf > 0))
+            nee = clamp_intensity(_scrub(nee, want_shadow, stats, config),
+                                  clamp_v)
+            s_origin = safe_origin(hit_pos, n_geom)
+            s_dist = torch.where(want_shadow,
+                                 dist - 2.0 * config.geometry_epsilon, 0.0)
+            stats["shadow_count"] = want_shadow.sum()
+
+            if env_nee_active and env_depth_ok(depth):
+                il = config.env_nee_interleave
+                if il > 1:
+                    # interleaved sampling: one env sample per tb x tb image
+                    # tile, keyed by absolute pixel coords
+                    tb = max(int(round(il ** 0.5)), 1)
+                    tiles_x = (width + tb - 1) // tb
+                    if height is not None:
+                        # evaluate the tile table once, gather per lane
+                        tiles_y = (height + tb - 1) // tb
+                        tid = torch.arange(tiles_x * tiles_y,
+                                           device=pid.device)
+                        _, re_t = rng.random_float(rng.wang_hash(
+                            rng.path_seed(tid, sample_index, depth)
+                            ^ 0x517CC1B7))
+                        ed_t, ep_t, er_t = sample_envmap(scene, re_t)
+                        gid = (py // tb) * tiles_x + px // tb
+                        e_dir, e_pdf, e_rad = ed_t[gid], ep_t[gid], er_t[gid]
+                    else:
+                        gid = (py // tb) * tiles_x + px // tb
+                        _, re = rng.random_float(rng.wang_hash(
+                            rng.path_seed(gid, sample_index, depth)
+                            ^ 0x517CC1B7))
+                        e_dir, e_pdf, e_rad = sample_envmap(scene, re)
+                else:
+                    seed, re = rng.random_float(seed)
+                    e_dir, e_pdf, e_rad = sample_envmap(scene, re)
+                e_cos = dot3(e_dir, i_n)
+                eb_val, eb_pdf = bsdf.evaluate_bsdf(sd, i_n, t_vec, b_vec,
+                                                    -direction, e_dir)
+                e_contrib = (throughput * eb_val * e_rad
+                             * (e_cos / torch.clamp(e_pdf + eb_pdf,
+                                                    min=1e-20))[..., None])
+                e_want = (alive & ~spec_mat & ~alpha_cut & (e_cos > 0)
+                          & (e_pdf > 0) & (eb_pdf > 0))
+                e_contrib = clamp_intensity(
+                    _scrub(e_contrib, e_want, stats, config), clamp_v)
+                stats["shadow_count"] = stats["shadow_count"] + e_want.sum()
+                # one fused occlusion launch for light + envmap shadow rays;
+                # depth-0 blocks arrive coherent, so only bounces sort
+                occ2 = intersector.occluded(
+                    scene, torch.cat([s_origin, s_origin]),
+                    torch.cat([l_dir, e_dir]),
+                    torch.cat([s_dist, torch.where(e_want, 1e30, 0.0)]),
+                    sort=depth > 0, coherent=False)
+                occ, e_occ = occ2[:n], occ2[n:]
+                radiance = radiance + torch.where(
+                    (want_shadow & ~occ)[..., None], nee, 0.0)
+                radiance = radiance + torch.where((e_want & ~e_occ)[..., None],
+                                                  e_contrib, 0.0)
+            else:
+                occ = intersector.occluded(scene, s_origin, l_dir, s_dist,
+                                           sort=depth > 0, coherent=depth == 0)
+                radiance = radiance + torch.where(
+                    (want_shadow & ~occ)[..., None], nee, 0.0)
 
     if depth >= config.max_path_length:
         # final depth: no extension rays

@@ -26,6 +26,7 @@ from ..bvh import tlas
 from ..config import RenderConfig
 from ..ops import traverse, tvisit_intersect, visit_intersect
 from ..ops.intersect import BIG_T, closest_hit_woop, intersect_woop
+from ..utils import tracing
 from .integrator import Intersector
 
 
@@ -35,17 +36,19 @@ def _tris_from_scene(scene):
 
 def make_brute_intersector(config: RenderConfig) -> Intersector:
     def closest(scene, o, d, t_max=None, sort=True, coherent=False):
-        t, prim, u, v = traverse.brute_force_closest(
-            o, d, _tris_from_scene(scene), t_epsilon=config.t_epsilon)
-        if t_max is not None:
-            prim = torch.where(t < t_max, prim, -1)
-            t = torch.where(prim >= 0, t, BIG_T)
-        return t, prim, u, v
+        with tracing.span("isect.closest"):
+            t, prim, u, v = traverse.brute_force_closest(
+                o, d, _tris_from_scene(scene), t_epsilon=config.t_epsilon)
+            if t_max is not None:
+                prim = torch.where(t < t_max, prim, -1)
+                t = torch.where(prim >= 0, t, BIG_T)
+            return t, prim, u, v
 
     def occluded(scene, o, d, dist, sort=True, coherent=False):
-        t, prim, _, _ = traverse.brute_force_closest(
-            o, d, _tris_from_scene(scene), t_epsilon=config.t_epsilon)
-        return (prim >= 0) & (t < dist)
+        with tracing.span("isect.occluded"):
+            t, prim, _, _ = traverse.brute_force_closest(
+                o, d, _tris_from_scene(scene), t_epsilon=config.t_epsilon)
+            return (prim >= 0) & (t < dist)
 
     return Intersector(closest, occluded)
 
@@ -55,16 +58,18 @@ def make_bvh_intersector(config: RenderConfig,
     """Over the scene's derived triangle table ("tri_table"): no edges
     or copies are made per call."""
     def closest(scene, o, d, t_max=None, sort=True, coherent=False):
-        return traverse.traverse_wide(
-            o, d, scene["bvh"], scene["tri_table"],
-            leaf_size=leaf_size, t_epsilon=config.t_epsilon, t_max=t_max)
+        with tracing.span("isect.closest"):
+            return traverse.traverse_wide(
+                o, d, scene["bvh"], scene["tri_table"],
+                leaf_size=leaf_size, t_epsilon=config.t_epsilon, t_max=t_max)
 
     def occluded(scene, o, d, dist, sort=True, coherent=False):
-        _, prim, _, _ = traverse.traverse_wide(
-            o, d, scene["bvh"], scene["tri_table"],
-            leaf_size=leaf_size, t_max=dist, t_epsilon=config.t_epsilon,
-            any_hit=True)
-        return prim >= 0
+        with tracing.span("isect.occluded"):
+            _, prim, _, _ = traverse.traverse_wide(
+                o, d, scene["bvh"], scene["tri_table"],
+                leaf_size=leaf_size, t_max=dist, t_epsilon=config.t_epsilon,
+                any_hit=True)
+            return prim >= 0
 
     return Intersector(closest, occluded)
 
@@ -83,32 +88,37 @@ def make_dense_intersector(config: RenderConfig) -> Intersector:
     """Every ray against every cell slot, with a Möller–Trumbore refine
     of the winner: exact, and economical for tiny scenes only."""
     def closest(scene, o, d, t_max=None, sort=True, coherent=False):
-        tl = scene["treelets"]
-        woop = dense_woop(tl)
-        t, slot, u, v = closest_hit_woop(
-            o, d, woop, torch.arange(woop.shape[0], device=woop.device),
-            t_epsilon=config.t_epsilon, tri_verts=tl["verts"],
-            t_max=BIG_T if t_max is None else t_max)
-        prim = torch.where(slot >= 0,
-                           tl["slot_to_prim"][torch.clamp(slot, min=0)], -1)
-        return torch.where(prim >= 0, t, BIG_T), prim, u, v
+        with tracing.span("isect.closest"):
+            tl = scene["treelets"]
+            woop = dense_woop(tl)
+            t, slot, u, v = closest_hit_woop(
+                o, d, woop, torch.arange(woop.shape[0], device=woop.device),
+                t_epsilon=config.t_epsilon, tri_verts=tl["verts"],
+                t_max=BIG_T if t_max is None else t_max)
+            prim = torch.where(
+                slot >= 0, tl["slot_to_prim"][torch.clamp(slot, min=0)], -1)
+            return torch.where(prim >= 0, t, BIG_T), prim, u, v
 
     def occluded(scene, o, d, dist, sort=True, coherent=False):
-        hit, t, _, _ = intersect_woop(o, d, dense_woop(scene["treelets"]),
-                                      t_epsilon=config.t_epsilon)
-        return (hit & (t < dist[:, None])).any(dim=-1)
+        with tracing.span("isect.occluded"):
+            hit, t, _, _ = intersect_woop(o, d, dense_woop(scene["treelets"]),
+                                          t_epsilon=config.t_epsilon)
+            return (hit & (t < dist[:, None])).any(dim=-1)
 
     return Intersector(closest, occluded)
 
 
 def make_visit_intersector(config: RenderConfig) -> Intersector:
     def closest(scene, o, d, t_max=None, sort=True, coherent=False):
-        return visit_intersect.closest_hit(scene, o, d, config, t_max=t_max,
-                                           sort=sort, coherent=coherent)
+        with tracing.span("isect.closest"):
+            return visit_intersect.closest_hit(
+                scene, o, d, config, t_max=t_max, sort=sort,
+                coherent=coherent)
 
     def occluded(scene, o, d, dist, sort=True, coherent=False):
-        return visit_intersect.any_hit(scene, o, d, dist, config, sort=sort,
-                                       coherent=coherent)
+        with tracing.span("isect.occluded"):
+            return visit_intersect.any_hit(scene, o, d, dist, config,
+                                           sort=sort, coherent=coherent)
 
     return Intersector(closest, occluded)
 
@@ -119,14 +129,16 @@ def make_tvisit_intersector(config: RenderConfig) -> Intersector:
     (primary tiles) go to the visit kernel, whose per-block unions are
     already small there."""
     def closest(scene, o, d, t_max=None, sort=True, coherent=False):
-        mod = visit_intersect if coherent else tvisit_intersect
-        return mod.closest_hit(scene, o, d, config, t_max=t_max, sort=sort,
-                               coherent=coherent)
+        with tracing.span("isect.closest"):
+            mod = visit_intersect if coherent else tvisit_intersect
+            return mod.closest_hit(scene, o, d, config, t_max=t_max,
+                                   sort=sort, coherent=coherent)
 
     def occluded(scene, o, d, dist, sort=True, coherent=False):
-        mod = visit_intersect if coherent else tvisit_intersect
-        return mod.any_hit(scene, o, d, dist, config, sort=sort,
-                           coherent=coherent)
+        with tracing.span("isect.occluded"):
+            mod = visit_intersect if coherent else tvisit_intersect
+            return mod.any_hit(scene, o, d, dist, config, sort=sort,
+                               coherent=coherent)
 
     return Intersector(closest, occluded)
 
@@ -154,13 +166,16 @@ def make_tlas_intersector(config: RenderConfig) -> Intersector:
         return t, flat, u, v
 
     def closest(scene, o, d, t_max=None, sort=True, coherent=False):
-        t, prim, u, v = _loop(scene, o, d, BIG_T if t_max is None else t_max,
-                              any_hit=False)
-        return torch.where(prim >= 0, t, BIG_T), prim, u, v
+        with tracing.span("isect.closest"):
+            t, prim, u, v = _loop(scene, o, d,
+                                  BIG_T if t_max is None else t_max,
+                                  any_hit=False)
+            return torch.where(prim >= 0, t, BIG_T), prim, u, v
 
     def occluded(scene, o, d, dist, sort=True, coherent=False):
-        _, prim, _, _ = _loop(scene, o, d, dist, any_hit=True)
-        return prim >= 0
+        with tracing.span("isect.occluded"):
+            _, prim, _, _ = _loop(scene, o, d, dist, any_hit=True)
+            return prim >= 0
 
     return Intersector(closest, occluded)
 

@@ -50,6 +50,7 @@ from ..ops.intersect import cross3, dot3, woop_matrices
 from ..ops.traverse import node_table, tri_edges, tri_table
 from ..ops.visit_intersect import device_tables
 from ..scene.mesh import TriangleSoA
+from ..utils import tracing
 
 
 @dataclasses.dataclass
@@ -778,7 +779,8 @@ _GEOMETRIC_PLANES = ("vertices", "normals", "gnormal", "tangent",
 def _host(x) -> np.ndarray:
     """A scene leaf as a numpy array: a tensor is copied to the host."""
     if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
+        with tracing.span("sync.host_table"):
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
@@ -808,30 +810,36 @@ def retransform_instances(scene: dict, instances: list[InstancedMesh],
     table derived from them (``traverse.tri_table``), the pack and the
     instance tables are numpy arrays, and the new pack is also returned
     as ``_pack_host``."""
-    cat = _transform_triangles_all(instances)
-    out = dict(scene)
-    for k in _GEOMETRIC_PLANES:
-        out["tri_area" if k == "area" else f"tri_{k}"] = cat[k][perm]
-    out["tri_table"] = tri_table(
-        tri_edges(torch.from_numpy(out["tri_vertices"]))).numpy()
-    if "tri_pack" in scene:
-        if pack_host is not None:
-            tp = refresh_tri_pack(pack_host, out)
-        else:
-            tp = build_tri_pack({k: _host(v) for k, v in out.items()
-                                 if k.startswith("tri_")})
-        if tp is not None:
-            out["tri_pack"] = tp
-            out["_pack_host"] = tp
-    if "tlas" in scene:
-        tl = dict(scene["tlas"])
-        blas_list = [dict(b) for b in tl["blas"]]
-        roots = [(_host(b["root_lo"]), _host(b["root_hi"]))
-                 for b in blas_list]
-        for bl, t in zip(blas_list, _instance_tables(instances, roots)):
-            bl.update(t)
-        tl["blas"] = tuple(blas_list)
-        out["tlas"] = tl
+    with tracing.span("scene.retransform"):
+        with tracing.span("scene.transform"):
+            cat = _transform_triangles_all(instances)
+            out = dict(scene)
+            for k in _GEOMETRIC_PLANES:
+                out["tri_area" if k == "area" else f"tri_{k}"] = cat[k][perm]
+        with tracing.span("scene.tri_table"):
+            out["tri_table"] = tri_table(
+                tri_edges(torch.from_numpy(out["tri_vertices"]))).numpy()
+        if "tri_pack" in scene:
+            with tracing.span("scene.pack"):
+                if pack_host is not None:
+                    tp = refresh_tri_pack(pack_host, out)
+                else:
+                    tp = build_tri_pack({k: _host(v) for k, v in out.items()
+                                         if k.startswith("tri_")})
+                if tp is not None:
+                    out["tri_pack"] = tp
+                    out["_pack_host"] = tp
+        if "tlas" in scene:
+            with tracing.span("scene.instance_tables"):
+                tl = dict(scene["tlas"])
+                blas_list = [dict(b) for b in tl["blas"]]
+                roots = [(_host(b["root_lo"]), _host(b["root_hi"]))
+                         for b in blas_list]
+                for bl, t in zip(blas_list,
+                                 _instance_tables(instances, roots)):
+                    bl.update(t)
+                tl["blas"] = tuple(blas_list)
+                out["tlas"] = tl
     return out
 
 
@@ -966,15 +974,17 @@ def scene_to_torch(scene_np: dict, device) -> dict:
             x = np.ascontiguousarray(x)
             if not x.flags.writeable:    # a memory-mapped cache member
                 x = x.copy()
+            tracing.count("upload_bytes", x.nbytes)
             return torch.from_numpy(x).to(device)
         return x
-    out = conv(scene_np)
-    if "wplanes" in out.get("treelets", {}):
-        out["treelets"].update(device_tables(out["treelets"]))
-    if "child" in out.get("bvh", {}):
-        out["bvh"]["nodes"] = node_table(out["bvh"])
-    if "tri_vertices" in out and "tri_table" not in out:
-        out["tri_table"] = tri_table(tri_edges(out["tri_vertices"]))
-    for b in out.get("tlas", {}).get("blas", ()):
-        walk_tables(b)
+    with tracing.span("scene.upload"):
+        out = conv(scene_np)
+        if "wplanes" in out.get("treelets", {}):
+            out["treelets"].update(device_tables(out["treelets"]))
+        if "child" in out.get("bvh", {}):
+            out["bvh"]["nodes"] = node_table(out["bvh"])
+        if "tri_vertices" in out and "tri_table" not in out:
+            out["tri_table"] = tri_table(tri_edges(out["tri_vertices"]))
+        for b in out.get("tlas", {}).get("blas", ()):
+            walk_tables(b)
     return out

@@ -29,7 +29,7 @@ import torch
 from ..config import RenderConfig
 from ..ops.compaction import ray_sort_keys
 from ..ops.rng import blue_noise_shift_row
-from ..utils import Timer
+from ..utils import tracing
 from .integrator import (Intersector, PathState, _tile_permutation,
                          depth_stage, make_path_state)
 
@@ -82,7 +82,9 @@ def _compact_prefix(scene, packed, prev_nc: int, chunk: int):
     head, live = _compact_sort_packed(scene, packed[:m])
     if m < packed.shape[0]:
         head = torch.cat([head, packed[m:]])
-    return head, int(live)
+    with tracing.span("sync.compact"):
+        live = int(live)
+    return head, live
 
 
 class WavefrontDriver:
@@ -145,9 +147,9 @@ class WavefrontDriver:
         stats, aux) with stats {"ray_count_d", "shadow_count_d"} as
         device scalars and aux depth 0's {"normal" (N, 3), "depth" (N,)}
         in lane order (``aux_inverse``), None unless ``with_aux``. With ``depth_times`` (a list),
-        the device is synchronised after each depth and the depth's wall
-        time (its stages and the compaction after it) is appended, in
-        seconds."""
+        the device is synchronised at the end of each depth and the
+        depth's wall time (its stages and the compaction after it), the
+        ``driver.depth`` span's own, is appended, in seconds."""
         cfg, n, chunk = self.config, self.n, self.chunk
         probe_lane = (probe_index if self._inv_np is None
                       else int(self._inv_np[probe_index]))
@@ -156,46 +158,54 @@ class WavefrontDriver:
         stats = {}
         probe = None
         aux = []
-        timer = Timer()
         nc = n // chunk
         for depth in range(cfg.max_path_length + 1):
-            for c in range(nc):
-                sl = slice(c * chunk, (c + 1) * chunk)
-                rel = probe_lane - c * chunk
-                in_chunk = depth == 0 and 0 <= rel < chunk
-                if depth == 0:
-                    state = make_path_state(
-                        scene, view, self.width, self.height, sample_index,
-                        cfg, self._pid[sl],
-                        pixel_cache={k: v[sl] for k, v in pc.items()})
-                else:
-                    state = _unpack_state(packed[sl])
-                out, st, probe_c, aux_c = self._stage(
-                    scene, view, state, sample_index, rel if in_chunk else 0,
-                    depth, with_aux=with_aux)
-                packed[sl] = _pack_state(out)
-                if in_chunk:
-                    probe = probe_c
-                if depth == 0 and with_aux:
-                    aux.append(aux_c)
-                for k, v in st.items():
-                    key = f"{k}_{depth}"
-                    stats[key] = stats[key] + v if key in stats else v
-            if depth < cfg.max_path_length:
-                packed, live = _compact_prefix(scene, packed, nc, chunk)
-                nc = -(-live // chunk)
+            with tracing.span("driver.depth",
+                              timed=depth_times is not None) as span:
+                for c in range(nc):
+                    sl = slice(c * chunk, (c + 1) * chunk)
+                    rel = probe_lane - c * chunk
+                    in_chunk = depth == 0 and 0 <= rel < chunk
+                    if depth == 0:
+                        with tracing.span("driver.raygen"):
+                            state = make_path_state(
+                                scene, view, self.width, self.height,
+                                sample_index, cfg, self._pid[sl],
+                                pixel_cache={k: v[sl] for k, v in pc.items()})
+                    else:
+                        state = _unpack_state(packed[sl])
+                    with tracing.span("driver.stage"):
+                        out, st, probe_c, aux_c = self._stage(
+                            scene, view, state, sample_index,
+                            rel if in_chunk else 0, depth, with_aux=with_aux)
+                    with tracing.span("driver.pack"):
+                        packed[sl] = _pack_state(out)
+                    if in_chunk:
+                        probe = probe_c
+                    if depth == 0 and with_aux:
+                        aux.append(aux_c)
+                    for k, v in st.items():
+                        key = f"{k}_{depth}"
+                        stats[key] = stats[key] + v if key in stats else v
+                if depth < cfg.max_path_length:
+                    with tracing.span("driver.compact"):
+                        packed, live = _compact_prefix(scene, packed, nc,
+                                                       chunk)
+                    nc = -(-live // chunk)
+                if depth_times is not None and self.device.type == "cuda":
+                    with tracing.span("sync.depth_times"):
+                        torch.cuda.synchronize(self.device)
             if depth_times is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                depth_times.append(timer.elapsed())
-                timer = Timer()
+                depth_times.append(span.seconds)
 
-        pid = packed[:, 17].contiguous().view(torch.int32).long()
-        radiance = torch.empty((n, 3), device=self.device)
-        radiance[pid - self.pixel_offset] = packed[:, 13:16]
-        aux = ({k: torch.cat([a[k] for a in aux]) for k in aux[0]}
-               if with_aux else None)
-        return accumulator + radiance, probe, stats, aux
+        with tracing.span("driver.resolve"):
+            pid = packed[:, 17].contiguous().view(torch.int32).long()
+            radiance = torch.empty((n, 3), device=self.device)
+            radiance[pid - self.pixel_offset] = packed[:, 13:16]
+            aux = ({k: torch.cat([a[k] for a in aux]) for k in aux[0]}
+                   if with_aux else None)
+            accumulator = accumulator + radiance
+        return accumulator, probe, stats, aux
 
     def aux_inverse(self, aux):
         """``step``'s aux planes from lane order to pixel order."""

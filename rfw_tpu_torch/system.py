@@ -29,6 +29,7 @@ from .scene import (AreaLight, DirectionalLight, HostMaterial, MaterialList,
 from .scene.lights import pack_lights
 from .scene.object import SceneObject
 from .scene.texture import build_atlases_cached
+from .utils import tracing
 
 
 class Changed(enum.IntFlag):
@@ -256,56 +257,60 @@ class RenderSystem:
         changed = self._changed
         if changed == Changed.NONE:
             return
-        if changed & Changed.SKYBOX and self._skybox is not None:
-            ctx.set_sky(self._skybox.pixels)
-        if changed & (Changed.MATERIALS | Changed.TEXTURES) or \
-                self._materials.is_dirty:
-            mats_dev = self._materials.generate_device_materials()
-            atlas, mtex_id = build_atlases_cached(
-                self._materials.materials, self._materials.textures,
-                self.config.merged_material_atlas)
-            if self.config.merged_material_atlas:
-                if mtex_id is None:
-                    mtex_id = np.zeros(
-                        max(len(self._materials.materials), 1), np.int32)
-                mats_dev["mtex_id"] = mtex_id
-            ctx.set_materials(mats_dev)
-            ctx.set_textures(atlas)
-            self._materials.mark_clean()
-            emissive = np.array([m.is_emissive()
-                                 for m in self._materials.materials], bool)
-            for obj in self._objects:
-                obj.compute_light_indices(emissive)
-            changed |= Changed.AREA_LIGHTS
-        if changed & (Changed.MODELS | Changed.ANIMATED):
-            for obj in self._objects:
-                for mesh in obj.meshes:
-                    ctx.set_mesh(mesh.mesh_slot, mesh.triangles())
-        # instances, flattened to one id per (instance, mesh)
-        flat_id: dict[tuple[int, int], int] = {}
-        for idx, inst in enumerate(self._instances):
-            if inst is None:
-                continue
-            obj = inst.geometry.object
-            for mesh_i, mesh in enumerate(obj.meshes):
-                flat_id[(idx, mesh_i)] = len(flat_id)
-                if changed & (Changed.INSTANCES | Changed.MODELS
-                              | Changed.ANIMATED):
-                    ctx.set_instance(flat_id[(idx, mesh_i)], mesh.mesh_slot,
-                                     self._instance_matrices[idx]
-                                     @ obj.mesh_matrices[mesh_i])
-        if changed & Changed.AREA_LIGHTS:
-            self._update_area_lights()
-        if changed & (Changed.LIGHTS | Changed.AREA_LIGHTS):
-            overrides = {
-                (flat_id.get((al.inst_idx, al.mesh_idx), -1), al.tri_idx): li
-                for li, al in enumerate(self._area_lights)}
-            ctx.set_lights(pack_lights(
-                self._area_lights, self._point_lights, self._spot_lights,
-                self._dir_lights), overrides=overrides)
-        ctx.update()
-        self._changed = Changed.NONE
-        self._should_reset = True
+        with tracing.span("system.synchronize"):
+            if changed & Changed.SKYBOX and self._skybox is not None:
+                ctx.set_sky(self._skybox.pixels)
+            if changed & (Changed.MATERIALS | Changed.TEXTURES) or \
+                    self._materials.is_dirty:
+                mats_dev = self._materials.generate_device_materials()
+                atlas, mtex_id = build_atlases_cached(
+                    self._materials.materials, self._materials.textures,
+                    self.config.merged_material_atlas)
+                if self.config.merged_material_atlas:
+                    if mtex_id is None:
+                        mtex_id = np.zeros(
+                            max(len(self._materials.materials), 1), np.int32)
+                    mats_dev["mtex_id"] = mtex_id
+                ctx.set_materials(mats_dev)
+                ctx.set_textures(atlas)
+                self._materials.mark_clean()
+                emissive = np.array([m.is_emissive()
+                                     for m in self._materials.materials], bool)
+                for obj in self._objects:
+                    obj.compute_light_indices(emissive)
+                changed |= Changed.AREA_LIGHTS
+            if changed & (Changed.MODELS | Changed.ANIMATED):
+                for obj in self._objects:
+                    for mesh in obj.meshes:
+                        ctx.set_mesh(mesh.mesh_slot, mesh.triangles())
+            # instances, flattened to one id per (instance, mesh)
+            flat_id: dict[tuple[int, int], int] = {}
+            with tracing.span("system.instances"):
+                for idx, inst in enumerate(self._instances):
+                    if inst is None:
+                        continue
+                    obj = inst.geometry.object
+                    for mesh_i, mesh in enumerate(obj.meshes):
+                        flat_id[(idx, mesh_i)] = len(flat_id)
+                        if changed & (Changed.INSTANCES | Changed.MODELS
+                                      | Changed.ANIMATED):
+                            ctx.set_instance(
+                                flat_id[(idx, mesh_i)], mesh.mesh_slot,
+                                self._instance_matrices[idx]
+                                @ obj.mesh_matrices[mesh_i])
+            if changed & Changed.AREA_LIGHTS:
+                self._update_area_lights()
+            if changed & (Changed.LIGHTS | Changed.AREA_LIGHTS):
+                overrides = {
+                    (flat_id.get((al.inst_idx, al.mesh_idx), -1),
+                     al.tri_idx): li
+                    for li, al in enumerate(self._area_lights)}
+                ctx.set_lights(pack_lights(
+                    self._area_lights, self._point_lights, self._spot_lights,
+                    self._dir_lights), overrides=overrides)
+            ctx.update()
+            self._changed = Changed.NONE
+            self._should_reset = True
 
     # -- frames --------------------------------------------------------------
 
@@ -358,7 +363,8 @@ class RenderSystem:
                               brightness, contrast)
         if fxaa:
             ldr = tonemap.fxaa(ldr)
-        return ldr.cpu().numpy()
+        with tracing.span("sync.tonemap"):
+            return ldr.cpu().numpy()
 
     # -- progressive-render checkpoint ---------------------------------------
 

@@ -1,4 +1,4 @@
-from . import image, logger, serial
+from . import image, logger, serial, tracing
 from .timer import Averager, Timer
 
-__all__ = ["image", "logger", "serial", "Averager", "Timer"]
+__all__ = ["image", "logger", "serial", "tracing", "Averager", "Timer"]
