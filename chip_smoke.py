@@ -71,8 +71,15 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    on a generated ~317k-triangle scene loaded through add_object (PLY,
    with texture coordinates that no untextured material reads), one
    warm-up sample, then 3 CONVERGE windows of 4 samples; kernel launch
-   counters are reset just before the windows and must grow; then one
-   profile_stages frame gives the per-depth split;
+   counters are reset just before the windows and must grow (the NEE's
+   two kernels too); then one profile_stages frame gives the per-depth
+   split; then (phase 5b, ``phase_nee``) the NEE kernel bit for bit
+   against ``ops/nee.py::nee_plain`` on the slice's own depth-0 and
+   bounce lanes of chunk 0 and on ``synthetic.nee_case``'s made-up lanes
+   (all four light types, both picks, glass, the hashed pair, the envmap
+   per lane, planted NaNs under debug_checks), one launch, its device
+   time, its bytes bound and the plain version's time, and the same for
+   the second kernel, ``add_unoccluded``;
 6. the tvisit slice: the same scene, camera and samples after the
    switch; the expand, tvisit, visit and enum counters must all grow,
    and the frame must lie within RMSE 2e-3 of phase 5's;
@@ -193,8 +200,9 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON
-(eight kernels; its launches from phases 5, 6, 9, 10, 11, 12 and 13, and
-split by phase in ``launches_by_phase``; ``ms`` one launch between two
+(ten kernels; its launches from phases 5, 6, 9, 10, 11, 12 and 13, the
+NEE's two from phase 5's windows, and split by phase in
+``launches_by_phase``; ``ms`` one launch between two
 events, ``device_ms`` the device time), the card's name and power
 limit, and the run's JSON result.
 
@@ -2263,6 +2271,200 @@ def phase_retransform(ptxas=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the NEE kernel
+# ---------------------------------------------------------------------------
+
+# bytes a lane of the NEE kernel reads and writes (csrc/nee_kernel.cu's
+# note): 115 in, the seed and 41 a shadow ray out
+NEE_BYTES_IN, NEE_BYTES_RAY = 115, 41
+NEE_KERNELS = ("nee", "nee_add")
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape equal bit for bit."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def nee_args(case, device) -> tuple:
+    """``ops/nee.nee``'s scene and lanes from a ``synthetic.nee_case`` on
+    ``device``: its lights and sky, the engine's blue-noise stack."""
+    import torch
+    from rfw_tpu_torch.ops import nee, rng
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    lanes = case["lanes"]
+    scene = {"lights": {k: on(v) for k, v in case["lights"].items()},
+             "skybox": {k: on(v) for k, v in case["skybox"].items()},
+             "blue_noise": on(rng.blue_noise_stack())}
+    return scene, nee.NeeLanes(
+        sd={k: on(v) for k, v in lanes["sd"].items()},
+        **{k: on(v) for k, v in lanes.items() if k != "sd"})
+
+
+def nee_against_plain(scene, config, lanes, width, height, depth,
+                      sample_index) -> bool:
+    """One launch of the NEE kernel against ``nee_plain`` (Disney) on the
+    same tensors: every output and the counts equal bit for bit, and the
+    radiance ``add_unoccluded`` makes of them under a made-up occlusion
+    mask equal to its plain version's."""
+    import torch
+    from rfw_tpu_torch.ops import cuda_lib, nee
+    from rfw_tpu_torch.ops.bsdf import disney
+    st_k, st_p = {}, {}
+    before = cuda_lib.launch_counts["nee"]
+    got = nee.nee(scene, config, lanes, width, height, depth, sample_index,
+                  st_k)
+    want = nee.nee_plain(scene, config, disney, lanes, width, height, depth,
+                         sample_index, st_p)
+    equal = cuda_lib.launch_counts["nee"] == before + 1 and all(
+        _same_bits(a, b) for a, b in zip(got, want))
+    equal &= st_k.keys() == st_p.keys() and all(
+        int(st_k[k]) == int(st_p[k]) for k in st_k)
+    g = torch.Generator(device=lanes.pid.device).manual_seed(depth)
+    occ = torch.rand(want.want.shape, generator=g,
+                     device=lanes.pid.device) < 0.3
+    rad = torch.rand((lanes.pid.shape[0], 3), generator=g,
+                     device=lanes.pid.device)
+    equal &= _same_bits(nee.add_unoccluded(rad, got, occ),
+                        nee.add_unoccluded_plain(rad, want, occ))
+    return bool(equal)
+
+
+class _HeldNee:
+    """While entered, keeps the inputs of the first ``ops/nee.nee`` call of
+    each depth (chunk 0), cloned."""
+
+    def __enter__(self):
+        from rfw_tpu_torch.ops import nee
+        self.held, self.orig = {}, nee.nee
+
+        def held(scene, config, lanes, width, height, depth, sample_index,
+                 stats):
+            if depth not in self.held:
+                self.held[depth] = (scene, config, _clone_lanes(lanes),
+                                    width, height, depth, sample_index)
+            return self.orig(scene, config, lanes, width, height, depth,
+                             sample_index, stats)
+        nee.nee = held
+        return self
+
+    def __exit__(self, *exc):
+        from rfw_tpu_torch.ops import nee
+        nee.nee = self.orig
+        return False
+
+
+def _clone_lanes(lanes):
+    return type(lanes)(*(_clone(x) for x in lanes))
+
+
+def phase_nee(rs, ptxas=None) -> dict:
+    """The NEE kernel (phase 5b): on the 1080p slice's own depth-0 and
+    bounce lanes of chunk 0 (518,400 each, caught from one sample of
+    ``rs``) and on made-up lanes of ``synthetic.nee_case`` at the same
+    layout (all four light types under importance and uniform picks,
+    glass, the hashed pair past the blue-noise cutoff, the envmap
+    interleaved and per lane, planted NaNs under ``debug_checks``), bit
+    for bit against ``nee_plain``; its ptxas line; one launch (CUDA
+    events), its device time, its bytes bound and the plain version's
+    time on the depth-0 lanes. Returns its report."""
+    import dataclasses
+    import torch
+    from rfw_tpu_torch.ops import cuda_lib, nee
+    from rfw_tpu_torch.ops.bsdf import disney
+    from rfw_tpu_torch.render import RenderStatus
+
+    with _HeldNee() as h:
+        rs.render_frame(status=RenderStatus.RESET, samples=1)
+    torch.cuda.synchronize()
+    _check(0 in h.held and 1 in h.held, f"no depth-0 or depth-1 NEE call "
+           f"caught ({sorted(h.held)})")
+    for depth in (0, 1):
+        scene, cfg, lanes, width, height, _, si = h.held[depth]
+        equal = nee_against_plain(scene, cfg, lanes, width, height, depth,
+                                  si)
+        print(f"phase 5b: nee kernel vs nee_plain on the slice's depth-"
+              f"{depth} lanes of chunk 0 ({lanes.pid.shape[0]} lanes): "
+              f"{'equal bit for bit' if equal else 'DIFFERENT'}")
+        _check(equal, f"nee kernel != nee_plain at depth {depth}")
+    base = h.held[0][1]
+    cases = (("all lights, importance", {}, {}, 0, 3),
+             ("all lights, uniform", {}, {"importance_sample_lights": False},
+              1, 3),
+             ("lamps, glass, past the cutoff", {"lights": "lamps",
+                                                "glass": 0.5}, {}, 0, 300),
+             ("envmap per lane", {"order": "scattered"},
+              {"env_nee_interleave": 1}, 0, 5),
+             ("planted NaNs, debug_checks", {"nan_share": 0.01},
+              {"debug_checks": True}, 0, 2))
+    for label, case_kw, cfg_kw, depth, si in cases:
+        cfg = dataclasses.replace(base, **cfg_kw)
+        scene, lanes = nee_args(synthetic.nee_case(SEED + depth, 518_400,
+                                                   **case_kw), "cuda")
+        equal = nee_against_plain(scene, cfg, lanes, 1920, 1080, depth, si)
+        print(f"phase 5b: nee kernel vs nee_plain, made-up lanes ({label}, "
+              f"depth {depth}, sample {si}): "
+              f"{'equal bit for bit' if equal else 'DIFFERENT'}")
+        _check(equal, f"nee kernel != nee_plain ({label})")
+    p = (ptxas or cuda_lib.ptxas_report(cuda_lib.build_log))
+    for name in ("nee_kernel", "nee_add_kernel"):
+        _check(p.get(name, {}).get("spill_stores") == 0
+               and p.get(name, {}).get("spill_loads") == 0,
+               f"{name}: ptxas reports spills or no report ({p.get(name)})")
+    report = {}
+    for depth in (0, 1):
+        scene, cfg, lanes, width, height, _, si = h.held[depth]
+        n = lanes.pid.shape[0]
+        env = nee.env_nee_at(scene, cfg, depth)
+
+        def kernel():
+            return nee.nee(scene, cfg, lanes, width, height, depth, si, {})
+
+        ms = _median_ms(kernel)
+        device_ms = _device_ms(kernel)
+        plain_ms = _median_ms(lambda: nee.nee_plain(
+            scene, cfg, disney, lanes, width, height, depth, si, {}))
+        nbytes = n * (NEE_BYTES_IN + 8 + NEE_BYTES_RAY * (2 if env else 1))
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        print(f"phase 5b: nee_kernel on the depth-{depth} lanes ({n}, "
+              f"envmap {'on' if env else 'off'}): ptxas {p.get('nee_kernel')}"
+              f"; one launch {ms:.4f} ms, device {device_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms (bytes: {nbytes / n:.0f} B x {n} lanes at "
+              f"{PEAK_BYTES / 1e12:.2f} TB/s), share {bound_ms / ms:.3f} "
+              f"({bound_ms / device_ms:.3f} device); nee_plain {plain_ms:.2f}"
+              f" ms on the card")
+        if depth == 0:
+            report["nee"] = {"err": 0.0, "ms": ms, "device_ms": device_ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": "bytes"}
+    scene, cfg, lanes, width, height, _, si = h.held[0]
+    rays = nee.nee(scene, cfg, lanes, width, height, 0, si, {})
+    occ = torch.zeros_like(rays.want)
+    rad = torch.zeros((lanes.pid.shape[0], 3), device=lanes.pid.device)
+    ms = _median_ms(lambda: nee.add_unoccluded(rad, rays, occ))
+    device_ms = _device_ms(lambda: nee.add_unoccluded(rad, rays, occ))
+    plain_ms = _median_ms(lambda: nee.add_unoccluded_plain(rad, rays, occ))
+    k = rays.want.shape[0] // lanes.pid.shape[0]
+    nbytes = lanes.pid.shape[0] * (12 + 14 * k + 12)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(f"phase 5b: nee_add_kernel ({k} rays a lane): ptxas "
+          f"{p.get('nee_add_kernel')}; one launch {ms:.4f} ms, device "
+          f"{device_ms:.4f} ms; bound {bound_ms:.4f} ms, share "
+          f"{bound_ms / device_ms:.3f} device; plain {plain_ms:.3f} ms")
+    report["nee_add"] = {"err": 0.0, "ms": ms, "device_ms": device_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": "bytes"}
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the raster preview, tiles, the App and the live viewer
 # ---------------------------------------------------------------------------
 
@@ -3133,8 +3335,10 @@ def main() -> int:
     phase_golden()
     phase_megakernel_golden()
     launches, frame_visit = phase_slice(rs, n_tris, "phase 5", args.png,
-                                        args.profile, ("enum", "visit"))
+                                        args.profile,
+                                        ("enum", "visit", *NEE_KERNELS))
     phase_depth_split(rs, "phase 5")
+    report.update(phase_nee(rs, ptxas))
     t0 = time.perf_counter()
     rs.set_setting("intersector", "tvisit")
     report.update(phase_tvisit_kernel(rs, cfg, ptxas))
@@ -3213,7 +3417,7 @@ def main() -> int:
     print("phase 8: launches per deformation frame (1080p, 1 spp): "
           + json.dumps(launches_8))
 
-    # no single PyTorch call computes any of the eight functions
+    # no single PyTorch call computes any of the ten functions
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_by_phase": by_phase[name],
@@ -3223,6 +3427,17 @@ def main() -> int:
                 "bound_ms": report[name]["bound_ms"],
                 "bound_by": report[name]["bound_by"], "library_ms": None}
                for name in KERNELS]
+    # the NEE step replaces no Pallas kernel: an XLA-fused step of
+    # rfw_tpu's depth stage; its launches are phase 5's
+    kernels += [{"name": name, "route": "cuda",
+                 "source": "rfw_tpu_torch/csrc/nee_kernel.cu",
+                 "replaces": "rfw_tpu/render/integrator.py:193",
+                 "launches": launches[name],
+                 "launches_by_phase": {"5": launches[name]},
+                 **{k: report[name][k] for k in (
+                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                 "max_abs_err": report[name]["err"], "library_ms": None}
+                for name in NEE_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

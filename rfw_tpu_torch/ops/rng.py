@@ -141,7 +141,7 @@ _R2_ALPHA = np.array([0.7548776662466927, 0.5698402909980532], dtype=np.float64)
 _STACK_DIMS = 16
 
 
-def _dim_offsets(dim: int, size: int) -> tuple[int, int]:
+def dim_offsets(dim: int, size: int) -> tuple[int, int]:
     ox = (dim * 59 + (dim // 2) * 31) % size
     oy = (dim * 101 + (dim // 2) * 17) % size
     return ox, oy
@@ -155,7 +155,7 @@ def blue_noise_stack(size: int = _MASK_SIZE,
     mask = blue_noise_mask(size)
     out = np.empty((size, size, dims), np.float32)
     for d in range(dims):
-        ox, oy = _dim_offsets(d, size)
+        ox, oy = dim_offsets(d, size)
         out[:, :, d] = np.roll(mask, (-oy, -ox), axis=(0, 1))
     return out
 
@@ -166,12 +166,18 @@ def blue_noise_shift_row(stack, x, y):
     return stack[(y % size).long(), (x % size).long()]
 
 
-def blue_noise_from_shift(shift, sample_index: int, dim: int):
-    """R2 sample given the pixel's shift for ``dim``: the float32
-    product ``a * k`` (host scalars, rounded once) plus the shift, mod 1."""
+def r2_offset(sample_index: int, dim: int) -> float:
+    """The R2 term of ``blue_noise_from_shift``: the float32 product
+    ``a * k`` of host scalars, rounded once."""
     a = np.float32(_R2_ALPHA[dim % 2])
     k = np.float32(sample_index) + np.float32((dim // 2) * 0.38196601)
-    return torch.remainder(shift + float(a * k), 1.0)
+    return float(a * k)
+
+
+def blue_noise_from_shift(shift, sample_index: int, dim: int):
+    """R2 sample given the pixel's shift for ``dim``: the shift plus
+    ``r2_offset``, mod 1."""
+    return torch.remainder(shift + r2_offset(sample_index, dim), 1.0)
 
 
 def blue_noise_sample(mask, x, y, sample_index: int, dim: int):
@@ -182,6 +188,6 @@ def blue_noise_sample(mask, x, y, sample_index: int, dim: int):
         shift = mask[(y % size).long(), (x % size).long(),
                      dim % mask.shape[2]]
     else:
-        ox, oy = _dim_offsets(dim, size)
+        ox, oy = dim_offsets(dim, size)
         shift = mask[((y + oy) % size).long(), ((x + ox) % size).long()]
     return blue_noise_from_shift(shift, sample_index, dim)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..ops import fmath, light_sampling, raygen, rng
+from ..ops import fmath, light_sampling, nee, raygen, rng
 from ..ops.bsdf import get as get_bsdf
 from ..ops.bsdf.common import (clamp_intensity, dot3, safe_origin,
                                survival_probability)
@@ -73,33 +73,6 @@ def sample_skybox_with_pdf(scene, d):
         row = sky["pixpdf"][y, x]
         return row[..., 0:3], row[..., 3]
     return sky["pixels"][y, x], sky["pdf"][y, x]
-
-
-def sample_envmap(scene, r):
-    """Inverse-CDF envmap sample: uniform r → (direction, pdf, radiance)."""
-    sky = scene["skybox"]
-    pix = sky["pixels"]
-    h, w = pix.shape[0], pix.shape[1]
-    idx = torch.clamp(torch.searchsorted(sky["flat_cdf"], r), 0, h * w - 1)
-    y = idx // w
-    x = idx % w
-    u = (x.to(torch.float32) + 0.5) / w
-    v = (y.to(torch.float32) + 0.5) / h
-    phi = (2.0 * u - 1.0) * math.pi
-    theta = v * math.pi
-    sin_t = fmath.sin(theta)
-    d = torch.stack([sin_t * fmath.sin(phi), fmath.cos(theta),
-                     -sin_t * fmath.cos(phi)], dim=-1)
-    return d, sky["pdf"][y, x], pix[y, x]
-
-
-def _scrub(x, mask, stats, config):
-    """Zero NaN contributions; with ``config.debug_checks`` count the
-    selected lanes that needed it in ``stats["nan_scrubbed"]``."""
-    if config.debug_checks:
-        bad = torch.isnan(x).any(-1) & mask
-        stats["nan_scrubbed"] = stats.get("nan_scrubbed", 0) + bad.sum()
-    return torch.where(torch.isnan(x), 0.0, x)
 
 
 def _tile_permutation(width: int, n: int, tile: int = 16):
@@ -162,12 +135,10 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
     bsdf = get_bsdf(config.bsdf)
     clamp_v = float(config.firefly_clamp)
     lights = scene["lights"]
-    bn = scene.get("blue_noise") if config.blue_noise else None
 
     (origin, direction, throughput, radiance, last_pdf, spec_bounce,
      last_n, alive, pid) = state
     pid_l = pid.long()
-    px, py = pid_l % width, pid_l // width
     probe = aux = None
     stats = {}
 
@@ -180,24 +151,17 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
 
     with tracing.span("stage.shade"):
         miss = prim < 0
-        env_nee_active = (config.envmap_nee and config.variance_reduction
-                          and "skybox" in scene and "pdf" in scene["skybox"])
-
-        def env_depth_ok(d: int) -> bool:
-            return config.envmap_nee_max_depth < 0 or \
-                d <= config.envmap_nee_max_depth
-
         # skybox on miss, MIS-weighted against the previous vertex's envmap
         # NEE (a specular bounce shot none)
-        if env_nee_active and depth > 0 and env_depth_ok(depth - 1):
+        if depth > 0 and nee.env_nee_at(scene, config, depth - 1):
             sky, e_pdf = sample_skybox_with_pdf(scene, direction)
             denom_m = torch.where(spec_bounce, last_pdf, last_pdf + e_pdf)
         else:
             sky = sample_skybox(scene, direction)
             denom_m = last_pdf
         contrib = throughput * sky / torch.clamp(denom_m, min=1e-20)[..., None]
-        contrib = clamp_intensity(_scrub(contrib, alive & miss, stats, config),
-                                  clamp_v)
+        contrib = clamp_intensity(
+            nee.scrub(contrib, alive & miss, stats, config), clamp_v)
         radiance = radiance + torch.where((alive & miss)[..., None],
                                           contrib, 0.0)
         alive = alive & ~miss
@@ -251,7 +215,7 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
             e_contrib = torch.where(spec_bounce[..., None], spec_c, mis_c)
         e_contrib = torch.where((d_dot_nl > 0)[..., None], e_contrib, 0.0)
         e_contrib = clamp_intensity(
-            _scrub(e_contrib, alive & emissive, stats, config), clamp_v)
+            nee.scrub(e_contrib, alive & emissive, stats, config), clamp_v)
         radiance = radiance + torch.where((alive & emissive)[..., None],
                                           e_contrib, 0.0)
         alive = alive & ~emissive
@@ -265,108 +229,30 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
         throughput = throughput / torch.clamp(last_pdf, min=1e-20)[..., None]
 
     spec_mat = sd["roughness"] < config.min_roughness
-    # salted stream: the unsalted seed is the primary-ray seed
-    seed = rng.wang_hash(rng.path_seed(pid_l, sample_index, depth)
-                         ^ 0x9E3779B9)
 
     with tracing.span("stage.nee"):
         if config.variance_reduction:
-            if bn is not None:
-                # a distinct blue-noise dimension pair per depth
-                d0_, d1_ = 4 + 2 * depth, 5 + 2 * depth
-                if bn.ndim == 3:
-                    brow = rng.blue_noise_shift_row(bn, px, py)
-                    nd = bn.shape[2]
-                    r0 = rng.blue_noise_from_shift(brow[:, d0_ % nd],
-                                                   sample_index, d0_)
-                    r1 = rng.blue_noise_from_shift(brow[:, d1_ % nd],
-                                                   sample_index, d1_)
-                else:
-                    r0 = rng.blue_noise_sample(bn, px, py, sample_index, d0_)
-                    r1 = rng.blue_noise_sample(bn, px, py, sample_index, d1_)
-                seed, (h0, h1) = rng.random_floats(seed, 2)
-                if sample_index >= config.blue_noise_spp_cutoff:
-                    r0, r1 = h0, h1
+            lanes = nee.NeeLanes(sd, hit_pos, i_n, n_geom, t_vec, b_vec,
+                                 direction, throughput, alive, spec_mat,
+                                 alpha_cut, pid)
+            # the Disney BSDF takes the kernel on the card; the others
+            # keep the plain step
+            if config.bsdf == "disney":
+                rays = nee.nee(scene, config, lanes, width, height, depth,
+                               sample_index, stats)
             else:
-                seed, (r0, r1) = rng.random_floats(seed, 2)
-            ls = light_sampling.random_point_on_light(
-                lights, r0, r1, hit_pos, i_n,
-                importance_sample=config.importance_sample_lights)
-            l_vec = ls["position"] - hit_pos
-            dist = torch.sqrt(torch.clamp(dot3(l_vec, l_vec), min=1e-20))
-            l_dir = l_vec / dist[..., None]
-            n_dot_l = dot3(l_dir, i_n)
-            s_val, s_pdf = bsdf.evaluate_bsdf(sd, i_n, t_vec, b_vec,
-                                              -direction, l_dir)
-            # MIS with BSDF sampling only for area lights
-            denom = (torch.where(ls["is_delta"], 0.0, s_pdf)
-                     + ls["light_pdf"] * ls["pick_prob"])
-            nee = (throughput * s_val * ls["radiance"]
-                   * (n_dot_l / torch.clamp(denom, min=1e-20))[..., None])
-            want_shadow = (alive & ~spec_mat & ~alpha_cut & (n_dot_l > 0)
-                           & (ls["light_pdf"] > 0) & (s_pdf > 0))
-            nee = clamp_intensity(_scrub(nee, want_shadow, stats, config),
-                                  clamp_v)
-            s_origin = safe_origin(hit_pos, n_geom)
-            s_dist = torch.where(want_shadow,
-                                 dist - 2.0 * config.geometry_epsilon, 0.0)
-            stats["shadow_count"] = want_shadow.sum()
-
-            if env_nee_active and env_depth_ok(depth):
-                il = config.env_nee_interleave
-                if il > 1:
-                    # interleaved sampling: one env sample per tb x tb image
-                    # tile, keyed by absolute pixel coords
-                    tb = max(int(round(il ** 0.5)), 1)
-                    tiles_x = (width + tb - 1) // tb
-                    if height is not None:
-                        # evaluate the tile table once, gather per lane
-                        tiles_y = (height + tb - 1) // tb
-                        tid = torch.arange(tiles_x * tiles_y,
-                                           device=pid.device)
-                        _, re_t = rng.random_float(rng.wang_hash(
-                            rng.path_seed(tid, sample_index, depth)
-                            ^ 0x517CC1B7))
-                        ed_t, ep_t, er_t = sample_envmap(scene, re_t)
-                        gid = (py // tb) * tiles_x + px // tb
-                        e_dir, e_pdf, e_rad = ed_t[gid], ep_t[gid], er_t[gid]
-                    else:
-                        gid = (py // tb) * tiles_x + px // tb
-                        _, re = rng.random_float(rng.wang_hash(
-                            rng.path_seed(gid, sample_index, depth)
-                            ^ 0x517CC1B7))
-                        e_dir, e_pdf, e_rad = sample_envmap(scene, re)
-                else:
-                    seed, re = rng.random_float(seed)
-                    e_dir, e_pdf, e_rad = sample_envmap(scene, re)
-                e_cos = dot3(e_dir, i_n)
-                eb_val, eb_pdf = bsdf.evaluate_bsdf(sd, i_n, t_vec, b_vec,
-                                                    -direction, e_dir)
-                e_contrib = (throughput * eb_val * e_rad
-                             * (e_cos / torch.clamp(e_pdf + eb_pdf,
-                                                    min=1e-20))[..., None])
-                e_want = (alive & ~spec_mat & ~alpha_cut & (e_cos > 0)
-                          & (e_pdf > 0) & (eb_pdf > 0))
-                e_contrib = clamp_intensity(
-                    _scrub(e_contrib, e_want, stats, config), clamp_v)
-                stats["shadow_count"] = stats["shadow_count"] + e_want.sum()
-                # one fused occlusion launch for light + envmap shadow rays;
-                # depth-0 blocks arrive coherent, so only bounces sort
-                occ2 = intersector.occluded(
-                    scene, torch.cat([s_origin, s_origin]),
-                    torch.cat([l_dir, e_dir]),
-                    torch.cat([s_dist, torch.where(e_want, 1e30, 0.0)]),
-                    sort=depth > 0, coherent=False)
-                occ, e_occ = occ2[:n], occ2[n:]
-                radiance = radiance + torch.where(
-                    (want_shadow & ~occ)[..., None], nee, 0.0)
-                radiance = radiance + torch.where((e_want & ~e_occ)[..., None],
-                                                  e_contrib, 0.0)
-            else:
-                occ = intersector.occluded(scene, s_origin, l_dir, s_dist,
-                                           sort=depth > 0, coherent=depth == 0)
-                radiance = radiance + torch.where(
-                    (want_shadow & ~occ)[..., None], nee, 0.0)
+                rays = nee.nee_plain(scene, config, bsdf, lanes, width,
+                                     height, depth, sample_index, stats)
+            # one occlusion launch for light and envmap shadow rays; only
+            # bounces sort, and depth 0's light rays alone come coherent
+            light_only = rays.want.shape[0] == n
+            occ = intersector.occluded(
+                scene, rays.origin, rays.direction, rays.dist,
+                sort=depth > 0, coherent=depth == 0 and light_only)
+            radiance = nee.add_unoccluded(radiance, rays, occ)
+            seed = rays.seed
+        else:
+            seed = nee.lane_seed(pid, sample_index, depth)
 
     if depth >= config.max_path_length:
         # final depth: no extension rays

@@ -4,7 +4,8 @@ overflow the traversal's 64-entry stack, for checks of the traversal;
 the icosphere and the skinned glTF tube that ``chip_smoke.py``'s scenes
 and the examples' stand-ins for absent assets are built from; made-up
 parent windows and rays for checks of the child expansion; the inputs
-of an instance move's re-transform at a million triangles; and the 1080p
+of an instance move's re-transform at a million triangles and of a
+depth's next-event estimation at a chunk's lanes; and the 1080p
 slice (``build_slice_scene``), the generated stand-in for the reference
 bench's pica-4x scene that ``bench_torch.py`` and ``chip_smoke.py``
 render. The slice's builders take a ``RenderSystem`` and load the port's
@@ -315,6 +316,92 @@ def retransform_case(seed: int, spheres: int = 820, level: int = 3,
     return {"row": row, "prim": np.concatenate(prims), "base": base,
             "transforms": xf, "obj": obj,
             "pack": rng.normal(size=(row.shape[0], 32)).astype(np.float32)}
+
+
+def nee_case(seed: int, n: int, width: int = 1920, height: int = 1080,
+             lights: str = "all", order: str = "tiles", glass: float = 0.0,
+             nan_share: float = 0.0, sky: tuple = (512, 256)) -> dict:
+    """Made-up inputs of ``ops/nee.nee`` for ``n`` lanes of a ``width`` x
+    ``height`` image, from ``seed``. ``lights`` "lamps" holds the
+    benchmark sphereflake's three 0.5 x 0.5 area lamps (six triangles),
+    "all" adds a point, a spot and a directional light (each class padded
+    to a power of two with zero-energy slots). ``order`` "tiles" takes
+    the first ``n`` pixels in the integrator's 16 x 16 tile order (a
+    depth-0 chunk), "scattered" ``n`` pixels in a random order (a bounce
+    chunk after compaction). Hit points, normals (the shading normal a
+    small tilt off the geometric one, both facing the ray), Disney
+    materials (roughness down to 0.001; a ``glass`` share of lanes with
+    transmission 1 and eta 1.5, as the mount's spheres), throughputs and
+    flags (a tenth dead, 2 % alpha-cut) are random; a ``nan_share`` of the
+    lanes has a NaN throughput. The sky is ``Skybox.test_sky`` at ``sky``
+    with its importance tables. Returns numpy "lights" (``pack_lights``),
+    "skybox" ({pixels, pdf, flat_cdf}) and "lanes" (``ops/nee.NeeLanes``'
+    fields, "sd" a dict)."""
+    from ..scene.lights import (AreaLight, DirectionalLight, PointLight,
+                                SpotLight, pack_lights)
+    from ..scene.skybox import Skybox
+
+    rng = np.random.default_rng(seed)
+    area = []
+    for pos in ((4.0, 2.0, -3.0), (1.0, 4.0, 4.0), (-3.0, 5.0, -1.0)):
+        c = np.float32(pos)
+        nrm = _unit_rows(-c[None])[0]
+        t = _unit_rows(np.cross(nrm, [0.0, 1.0, 0.3])[None])[0]
+        b = np.cross(nrm, t).astype(np.float32)
+        q = [c + 0.25 * (sx * t + sy * b)
+             for sx, sy in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
+        for i0, i1, i2 in ((0, 1, 2), (0, 2, 3)):
+            area.append(AreaLight(q[i0], q[i1], q[i2], nrm,
+                                  np.float32([120.0] * 3), 0.125))
+    point, spot, directional = [], [], []
+    if lights == "all":
+        point = [PointLight(np.float32([1.8, 4.5, -1.5]),
+                            np.float32([12.0, 11.0, 10.0]))]
+        spot = [SpotLight(np.float32([-2.0, 4.0, 2.0]),
+                          _unit_rows(np.float32([[0.4, -1.0, -0.3]]))[0],
+                          np.float32([30.0, 28.0, 25.0]), 0.95, 0.8)]
+        directional = [DirectionalLight(
+            _unit_rows(np.float32([[-0.3, -1.0, 0.2]]))[0],
+            np.float32([1.5, 1.4, 1.2]))]
+    packed = pack_lights(area, point, spot, directional)
+    box = Skybox.test_sky(*sky)
+    skybox = {"pixels": box.pixels, **box.build_importance_tables()}
+
+    if order == "tiles":
+        y, x = np.divmod(np.arange(width * height, dtype=np.int64), width)
+        key = (((y // 16) * (width // 16 + 1) + x // 16) * 256
+               + (y % 16) * 16 + (x % 16))
+        pid = np.argsort(key, kind="stable")[:n]
+    else:
+        pid = rng.choice(width * height, size=n, replace=False)
+    u = lambda lo, hi: rng.uniform(lo, hi, n).astype(np.float32)  # noqa
+    n_geom = _unit_rows(rng.normal(size=(n, 3)))
+    i_n = _unit_rows(n_geom + 0.1 * rng.normal(size=(n, 3)))
+    d = _unit_rows(rng.normal(size=(n, 3)))
+    d = np.where((d * n_geom).sum(-1, keepdims=True) > 0, -d, d)
+    is_glass = rng.random(n) < glass
+    sd = {"color": rng.uniform(0, 1, (n, 3)).astype(np.float32),
+          "absorption": rng.uniform(0, 0.5, (n, 3)).astype(np.float32),
+          "metallic": u(0, 1), "subsurface": u(0, 1), "specular": u(0, 1),
+          "roughness": np.exp(u(np.log(1e-3), 0.0)).astype(np.float32),
+          "specular_tint": u(0, 1), "anisotropic": u(0, 1), "sheen": u(0, 1),
+          "sheen_tint": u(0, 1), "clearcoat": u(0, 1),
+          "clearcoat_gloss": u(0, 1),
+          "transmission": np.where(is_glass, 1.0, 0.0).astype(np.float32),
+          "eta": np.where(is_glass, 1.5, u(1.1, 1.8)).astype(np.float32)}
+    throughput = rng.uniform(0.1, 1.0, (n, 3)).astype(np.float32)
+    throughput[rng.random(n) < nan_share, 1] = np.nan
+    lanes = {"sd": sd,
+             "hit_pos": rng.uniform(-3, 3, (n, 3)).astype(np.float32),
+             "i_n": i_n, "n_geom": n_geom,
+             "t_vec": _unit_rows(np.cross(i_n, [0.0, 1.0, 0.0])),
+             "b_vec": _unit_rows(np.cross(i_n, [1.0, 0.0, 0.0])),
+             "direction": d, "throughput": throughput,
+             "alive": rng.random(n) < 0.9,
+             "spec_mat": sd["roughness"] < 0.01,
+             "alpha_cut": rng.random(n) < 0.02,
+             "pid": pid.astype(np.int32)}
+    return {"lights": packed, "skybox": skybox, "lanes": lanes}
 
 
 # ---------------------------------------------------------------------------

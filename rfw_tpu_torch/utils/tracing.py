@@ -20,6 +20,13 @@ nothing else turns it on.
 
 A span or counter never reads a device value, and nothing is written to
 disk: ``snapshot()`` hands out what was recorded since ``clear()``.
+
+The counters the port records: ``samples``, ``updates``, ``device_moves``
+and ``upload_bytes`` (``render/engines.py``, ``render/scene_data.py``);
+``tvisit.calls``, ``tvisit_rays.closest``, ``tvisit_rays.any`` and
+``tvisit.passes`` (``render/intersectors.py``, ``ops/tvisit_intersect.py``);
+``nee.kernel`` and ``nee.plain`` (``ops/nee.py``: each NEE step of a
+depth through the CUDA kernel, or through its plain PyTorch version).
 """
 
 from __future__ import annotations

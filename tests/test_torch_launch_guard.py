@@ -16,11 +16,14 @@ import ctypes
 import pytest
 import torch
 
+from chip_smoke import nee_args
 from rfw_tpu_torch.bvh import tlas
-from rfw_tpu_torch.ops import cuda_lib, traverse
+from rfw_tpu_torch.config import RenderConfig
+from rfw_tpu_torch.ops import cuda_lib, nee, traverse
 from rfw_tpu_torch.ops import tvisit_intersect as tv
 from rfw_tpu_torch.ops import visit_intersect as vi
 from rfw_tpu_torch.render import scene_data
+from rfw_tpu_torch.utils import synthetic
 
 
 class Recorder:
@@ -137,10 +140,29 @@ def _retransform():
         torch.zeros((5, 32)))
 
 
+def _nee_lanes():
+    return nee_args(synthetic.nee_case(1, 64, width=16, height=8), "cpu")
+
+
+def _nee():
+    scene, lanes = _nee_lanes()
+    return "rfw_nee", lanes.pid, lambda: nee.nee(
+        scene, RenderConfig(), lanes, 16, 8, 0, 3, {})
+
+
+def _nee_add():
+    scene, lanes = _nee_lanes()
+    rays = nee.nee_plain(scene, RenderConfig(), nee.disney, lanes, 16, 8, 0,
+                         3, {})
+    radiance = torch.zeros((64, 3))
+    return "rfw_nee_add", radiance, lambda: nee.add_unoccluded(
+        radiance, rays, torch.zeros_like(rays.want))
+
+
 WRAPPERS = {"enum": _enum, "visit": _visit, "expand": _expand,
             "tvisit": _tvisit, "traverse": _traverse,
             "tlas_premask": _tlas_premask, "tlas_walk": _tlas_walk,
-            "retransform": _retransform}
+            "retransform": _retransform, "nee": _nee, "nee_add": _nee_add}
 
 
 @pytest.fixture

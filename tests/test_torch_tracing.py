@@ -188,7 +188,9 @@ def test_profiler_warm_up_step_records_nothing():
             prof.step()
     assert seen[0] == ([], {})
     assert "engine.render" in names(seen[1])
-    assert seen[1].counters == {"samples": 1}
+    # on the CPU each NEE step of the frame runs the plain version
+    assert seen[1].counters == {"samples": 1, "nee.plain": names(
+        seen[1]).count("stage.nee")}
 
 
 @pytest.mark.parametrize("samples", [1, 3])
@@ -220,7 +222,8 @@ def test_sync_sites_of_a_wavefront_frame(samples):
     got = collections.Counter(s.name for s in snap.spans
                               if s.name.startswith("sync."))
     assert got == want
-    assert snap.counters == {"samples": samples}
+    assert snap.counters == {"samples": samples,
+                             "nee.plain": names(snap).count("stage.nee")}
     assert all(parent_name(snap, s) == "driver.compact" for s in snap.spans
                if s.name == "sync.compact")
     assert names(snap).count("isect.closest") == len(stages)
