@@ -1219,8 +1219,9 @@ def _sphere_move(i: int):
 def phase_refit():
     """Phase 8: config 4's path at 1080p. Deformation frames (the skinned
     tube re-posed) and instance moves (the spheres) must update the scene
-    by the device refit, never by a full build, each faster than the
-    build; the final state renders like a fresh build of it; one more
+    by the device update (``scene_data.move_instances_device``: one
+    ``retransform`` launch each), never by a full build, each faster than
+    the build; the final state renders like a fresh build of it; one more
     deformation frame runs through tvisit. Returns the launches of each
     deformation frame."""
     import torch
@@ -1231,34 +1232,33 @@ def phase_refit():
     from torch.profiler import ProfilerActivity, profile as prof
 
     builds, refits = [0], []
-    build, make_refit = sd.build_device_scene, sd.make_device_refit
+    build, update = sd.build_device_scene, sd.move_instances_device
 
     def counted_build(*a, **kw):
         builds[0] += 1
         return build(*a, **kw)
 
-    def timed_make_refit(*a, **kw):
-        apply = make_refit(*a, **kw)
-
-        def timed(*b):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            out = apply(*b)
-            ev[1].record()
-            refits.append(ev)
-            return out
-        return timed
+    def timed_device_update(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = update(*a, **kw)
+        ev[1].record()
+        refits.append(ev)
+        return out
 
     def timed_update(change):
         torch.cuda.synchronize()
         n_refits = len(refits)
+        launched = cuda_lib.launch_counts["retransform"]
         t0 = time.perf_counter()
         change()
         t1 = time.perf_counter()
         rs.synchronize()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        _check(len(refits) == n_refits + 1, "an update ran no device refit")
+        _check(len(refits) == n_refits + 1, "an update ran no device update")
+        _check(cuda_lib.launch_counts["retransform"] == launched + 1,
+               "a device update did not launch retransform once")
         refit = refits[-1][0].elapsed_time(refits[-1][1])
         return (t2 - t0) * 1e3, (t1 - t0) * 1e3, refit
 
@@ -1275,8 +1275,8 @@ def phase_refit():
         upd, host, refit, smp = (float(np.median(c)) for c in zip(*rows))
         print(f"phase 8: {label}: median update {upd:.1f} ms (host "
               f"{host:.1f} ms before synchronize, refit span {refit:.2f} "
-              f"ms between CUDA events around the refit call, host-dispatch "
-              f"bound, the rest {upd - host - refit:.1f} ms), "
+              f"ms between CUDA events around the device update's call, "
+              f"host-dispatch bound, the rest {upd - host - refit:.1f} ms), "
               f"median 1080p sample {smp:.1f} ms, {1e3 / (upd + smp):.3f} "
               f"frames/s at 1 spp; updates "
               f"{[round(r[0], 1) for r in rows]} ms")
@@ -1285,7 +1285,7 @@ def phase_refit():
                f"build's {build_s * 1e3:.1f} ms")
 
     torch.cuda.reset_peak_memory_stats()
-    sd.make_device_refit = timed_make_refit
+    sd.move_instances_device = timed_device_update
     try:
         with tempfile.TemporaryDirectory() as work:
             rs, n_tris = _refit_system(work, 0.0)
@@ -1319,7 +1319,7 @@ def phase_refit():
                    f"{2 * REFIT_FRAMES} same-topology updates")
             # one more deformation update under the profiler: the
             # update's kernels and device time (the refit span above
-            # brackets the host's dispatch of ~500 small ops, not the
+            # brackets the host's dispatch of the update's ops, not the
             # device's work)
             t_last = (REFIT_FRAMES + 0.5) / (REFIT_FRAMES + 2)
             with prof(activities=[ProfilerActivity.CPU,
@@ -1369,7 +1369,7 @@ def phase_refit():
                    f"tvisit deformation frame launched {counts}")
             phase_host_refit(rs, work, builds)
     finally:
-        sd.build_device_scene, sd.make_device_refit = build, make_refit
+        sd.build_device_scene, sd.move_instances_device = build, update
     print(f"phase 8: max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
@@ -2319,8 +2319,8 @@ def nee_against_plain(scene, config, lanes, width, height, depth,
     from rfw_tpu_torch.ops.bsdf import disney
     st_k, st_p = {}, {}
     before = cuda_lib.launch_counts["nee"]
-    got = nee.nee(scene, config, lanes, width, height, depth, sample_index,
-                  st_k)
+    got = nee.nee(scene, config, disney, lanes, width, height, depth,
+                  sample_index, st_k)
     want = nee.nee_plain(scene, config, disney, lanes, width, height, depth,
                          sample_index, st_p)
     equal = cuda_lib.launch_counts["nee"] == before + 1 and all(
@@ -2345,12 +2345,12 @@ class _HeldNee:
         from rfw_tpu_torch.ops import nee
         self.held, self.orig = {}, nee.nee
 
-        def held(scene, config, lanes, width, height, depth, sample_index,
-                 stats):
+        def held(scene, config, bsdf, lanes, width, height, depth,
+                 sample_index, stats):
             if depth not in self.held:
                 self.held[depth] = (scene, config, _clone_lanes(lanes),
                                     width, height, depth, sample_index)
-            return self.orig(scene, config, lanes, width, height, depth,
+            return self.orig(scene, config, bsdf, lanes, width, height, depth,
                              sample_index, stats)
         nee.nee = held
         return self
@@ -2425,7 +2425,8 @@ def phase_nee(rs, ptxas=None) -> dict:
         env = nee.env_nee_at(scene, cfg, depth)
 
         def kernel():
-            return nee.nee(scene, cfg, lanes, width, height, depth, si, {})
+            return nee.nee(scene, cfg, disney, lanes, width, height, depth,
+                           si, {})
 
         ms = _median_ms(kernel)
         device_ms = _device_ms(kernel)
@@ -2445,7 +2446,7 @@ def phase_nee(rs, ptxas=None) -> dict:
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": "bytes"}
     scene, cfg, lanes, width, height, _, si = h.held[0]
-    rays = nee.nee(scene, cfg, lanes, width, height, 0, si, {})
+    rays = nee.nee(scene, cfg, disney, lanes, width, height, 0, si, {})
     occ = torch.zeros_like(rays.want)
     rad = torch.zeros((lanes.pid.shape[0], 3), device=lanes.pid.device)
     ms = _median_ms(lambda: nee.add_unoccluded(rad, rays, occ))

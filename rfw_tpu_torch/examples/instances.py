@@ -4,7 +4,7 @@
 It runs the two instancing paths:
   * default: the flattened scene; a move refits it, no full build (on
     the bvh intersector of megakernel the host refit, on visit or tvisit
-    the device refit);
+    the device update);
   * ``--tlas``: the two-level TLAS/BLAS traversal (the instances share
     one BLAS; a move refreshes the instance tables).
 

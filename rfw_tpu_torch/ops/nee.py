@@ -3,9 +3,10 @@
 the envmap is importance-sampled, an envmap sample, each weighted by MIS
 against the BSDF, and the shadow rays that test them.
 
-``nee`` runs ``csrc/nee_kernel.cu`` for CUDA lanes, one thread a lane
-and the Disney BSDF, and ``nee_plain`` for CPU lanes; the two agree bit
-for bit on the same CUDA tensors. ``nee_plain`` serves every BSDF.
+``nee`` makes the kernel-or-plain choice: it runs ``csrc/nee_kernel.cu``
+(one thread a lane) for CUDA lanes under the Disney BSDF, and
+``nee_plain`` for CPU lanes and every other BSDF; the two agree bit for
+bit on the same CUDA tensors.
 ``add_unoccluded`` adds the contributions whose shadow rays reached
 their light; on CUDA tensors it is one launch of the same source.
 """
@@ -251,13 +252,15 @@ def _signed(u: int) -> int:
     return u - (1 << 32) if u >= 1 << 31 else u
 
 
-def nee(scene, config, lanes: NeeLanes, width: int, height: int | None,
-        depth: int, sample_index: int, stats: dict) -> ShadowRays:
-    """The NEE step under the Disney BSDF: ``nee_plain`` for CPU lanes, one
-    launch of ``csrc/nee_kernel.cu`` for CUDA lanes, equal to it bit for
-    bit. Sets ``stats`` as ``nee_plain`` does."""
-    if not cuda_lib.kernel_device(lanes.pid, "nee"):
-        return nee_plain(scene, config, disney, lanes, width, height, depth,
+def nee(scene, config, bsdf, lanes: NeeLanes, width: int,
+        height: int | None, depth: int, sample_index: int,
+        stats: dict) -> ShadowRays:
+    """The NEE step of BSDF module ``bsdf``: one launch of
+    ``csrc/nee_kernel.cu`` for CUDA lanes under the Disney BSDF, equal to
+    ``nee_plain`` bit for bit, else ``nee_plain``. Sets ``stats`` as
+    ``nee_plain`` does."""
+    if bsdf is not disney or not cuda_lib.kernel_device(lanes.pid, "nee"):
+        return nee_plain(scene, config, bsdf, lanes, width, height, depth,
                          sample_index, stats)
     tracing.count("nee.kernel")
     dev, n = lanes.pid.device, lanes.pid.shape[0]

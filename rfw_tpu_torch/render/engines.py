@@ -14,13 +14,22 @@
   fused ``trace_sample`` (with one chunk, compaction cannot save work).
 
 Kernels run on a CUDA device and their plain PyTorch versions on the
-CPU. Same-topology updates take the device refit when
-``config.device_refit`` is set and the intersector is neither ``bvh``
-(the device refit leaves the wide BVH as it was) nor ``tlas``, else the
-host refit; under ``tlas`` an instance move refreshes only the world
-planes and the instance tables, on the scene's device
-(``scene_data.move_instances_device``), and a deformation builds in full
-(its BLASes change).
+CPU. ``PathTracerEngine._route`` picks the path of a same-topology update
+(a moved instance, a deformed mesh):
+
+=====================================  ===============  ===============
+scene / intersector                    move             deformation
+=====================================  ===============  ===============
+``tlas`` (scene has TLAS tables)       device update    full build
+no TLAS tables, not ``bvh``,           device update    device update
+``config.device_refit``
+``bvh``, or ``device_refit`` False     host refit       host refit
+TLAS tables, not ``tlas``              full build       full build
+=====================================  ===============  ===============
+
+The device update (``scene_data.move_instances_device``) leaves the wide
+BVH and the BLASes as they were; the host refit
+(``scene_data.refit_deformed``) counts towards ``config.max_refits``.
 
 With ``config.n_devices`` above 1 every engine renders through
 ``parallel/tiles.py``: one contiguous row block of the pixels a tile,
@@ -115,9 +124,8 @@ class PathTracerEngine(EngineContext):
         self._bvh_host = None
         self._pack_host: np.ndarray | None = None
         self._refits = 0
-        self._device_refit = None
-        # what a tlas instance move reads besides the transforms
-        # (scene_data.move_tables), made once a full build
+        # what a device update reads besides the transforms
+        # (scene_data.move_tables), dropped by a build or a new mesh version
         self._move_tables: dict | None = None
         self._slot_planes_dev: dict = {}
         self._aux_dev: dict = {}
@@ -140,6 +148,7 @@ class PathTracerEngine(EngineContext):
     def set_mesh(self, slot: int, triangles: TriangleSoA) -> None:
         if self._meshes.get(slot) is not triangles:
             self._mesh_versions[slot] = self._mesh_versions.get(slot, 0) + 1
+            self._move_tables = None
         self._meshes[slot] = triangles
         self._dirty = True
 
@@ -218,74 +227,54 @@ class PathTracerEngine(EngineContext):
         return slot_planes
 
     def prewarm_instance_moves(self) -> None:
-        """Run the device refit once on the current scene and discard the
-        result, so that the first interactive move finds its device
-        memory and planes in place. Engine state is unchanged; a no-op
-        when the device refit would not be used."""
-        if (self._geo is None or self._dirty or not self._uses_device_refit()
-                or self._perm_host is None):
+        """Run the device update once on the current scene and discard the
+        result, so that the first interactive move finds its tables,
+        device memory and planes in place. Engine state is unchanged; a
+        no-op when a move would not take the device update."""
+        if (self._dirty or self._geo_key is None
+                or self._route(self._anim_key, self._geo_key[0]) != "device"):
             return
-        instances = self._instance_list()
-        if self._device_refit is None:
-            self._device_refit = scene_data.make_device_refit(
-                self._geo, instances, self._perm_host, self.config)
-        self._device_refit(self._device_slot_planes(instances),
-                           [im.transform for im in instances])
+        self._device_update(self._instance_list())
         with tracing.span("sync.prewarm"):
             _sync(self.device)
 
-    def _uses_device_refit(self) -> bool:
-        """The device refit leaves the wide BVH and the TLAS tables as
-        they were: the ``bvh`` and ``tlas`` intersectors, and any scene
-        with TLAS tables, take the host paths."""
-        return (self.config.device_refit
-                and self._intersector_name not in ("bvh", "tlas")
-                and not (self._geo is not None and "tlas" in self._geo))
+    def _route(self, anim_key, structure_key) -> str:
+        """How the geometry follows a change of the instances or meshes
+        (see the module's table): "device" (``_device_update``), "host"
+        (``_host_refit``) or "build". A move keeps ``structure_key``; a
+        deformation keeps ``anim_key`` and bumps a mesh version. The host
+        refit counts towards ``max_refits``, the device update does
+        not."""
+        geo, name = self._geo, self._intersector_name
+        if geo is None or self._perm_host is None:
+            return "build"
+        if "tlas" in geo:
+            # the device update keeps the BLASes, so only a move, and only
+            # the tlas intersector reads the instance tables it refreshes
+            moved = (name == "tlas" and self._geo_key is not None
+                     and self._geo_key[0] == structure_key)
+            return "device" if moved else "build"
+        if (self._anim_key != anim_key
+                or self._refits >= self.config.max_refits):
+            return "build"
+        if self.config.device_refit and name not in ("bvh", "tlas"):
+            return "device"
+        return "host" if self._bvh_host is not None else "build"
 
-    def _move_instances(self, instances) -> dict:
-        """Under ``tlas``, new transforms of the same structure: the world
-        planes, the triangle table, the pack and the instance tables made
-        again on the scene's device, in the build's triangle order
-        (``scene_data.move_instances_device``); the BLASes stay. Not a
-        refit: it does not count towards ``max_refits``. The host pack
-        goes stale, and is dropped: under ``tlas`` every other update
-        builds in full, which makes it again."""
+    def _device_update(self, instances) -> dict:
+        """The scene after ``scene_data.move_instances_device``, over the
+        move tables of this build and mesh versions (made here when
+        ``set_mesh`` or a build dropped them). The host pack is kept: the
+        host refit takes only its invariant columns (uv, material, lod,
+        light index)."""
         if self._move_tables is None:
             self._move_tables = scene_data.move_tables(
                 self._geo, instances, self._device_slot_planes(instances))
-        tracing.count("device_moves")
-        self._pack_host = None
         return {**self._geo, **scene_data.move_instances_device(
             self._geo, self._move_tables, instances)}
 
-    def _refit(self, instances, anim_key, structure_key):
-        """The same-topology update of the geometry, or None when the
-        update needs a full build (another structure, no build yet,
-        ``max_refits`` refits since the last build, or no native BVH
-        refit). Device refits with fresh Morton cells do not count
-        towards ``max_refits``: their cells never drift from the
-        geometry. Under ``tlas`` an update of the transforms alone takes
-        ``_move_instances``."""
-        if (self._intersector_name == "tlas" and self._geo is not None
-                and "tlas" in self._geo and self._perm_host is not None
-                and self._geo_key is not None
-                and self._geo_key[0] == structure_key):
-            return self._move_instances(instances)
-        if (self._anim_key != anim_key or self._geo is None
-                or self._perm_host is None
-                or self._refits >= self.config.max_refits):
-            return None
-        if self._uses_device_refit():
-            if self._device_refit is None:
-                self._device_refit = scene_data.make_device_refit(
-                    self._geo, instances, self._perm_host, self.config)
-            geo = self._device_refit(self._device_slot_planes(instances),
-                                     [im.transform for im in instances])
-            if not self.config.device_rebuild_cells:
-                self._refits += 1
-            return geo
-        if self._bvh_host is None:
-            return None
+    def _host_refit(self, instances) -> dict | None:
+        """The scene after the host refit, or None when it cannot refit."""
         out = scene_data.refit_deformed(
             self._geo, instances, self._perm_host, self._bvh_host,
             self.config, self._shape_caps, pack_host=self._pack_host)
@@ -316,9 +305,9 @@ class PathTracerEngine(EngineContext):
     def update(self) -> None:
         """Bring the device scene up to date. The geometry changes only
         when meshes, instances or light overrides did: a same-topology
-        change (a deformed mesh, a moved instance) refits it (``_refit``),
-        anything else builds it in full. The small tables always follow
-        the host objects."""
+        change (a deformed mesh, a moved instance) takes the path
+        ``_route`` picks, anything else builds it in full. The small
+        tables always follow the host objects."""
         if not self._dirty:
             return
         if not self._meshes:
@@ -345,7 +334,13 @@ class PathTracerEngine(EngineContext):
                 tuple(im.triangles.vertices.shape[0] for im in instances))
             if geo_key != self._geo_key:
                 tracing.count("updates")
-                geo = self._refit(instances, anim_key, structure_key)
+                route = self._route(anim_key, structure_key)
+                geo = None
+                if route == "device":
+                    tracing.count("device_moves")
+                    geo = self._device_update(instances)
+                elif route == "host":
+                    geo = self._host_refit(instances)
                 if geo is None:
                     built = scene_data.build_device_scene_cached(
                         instances, None, None, None, None, self.config,
@@ -358,7 +353,6 @@ class PathTracerEngine(EngineContext):
                         built.pop(k)
                     geo = scene_data.scene_to_torch(built, self.device)
                     self._refits = 0
-                    self._device_refit = None
                     self._move_tables = None
                 self._geo = geo
                 self._geo_key = geo_key

@@ -235,14 +235,8 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
             lanes = nee.NeeLanes(sd, hit_pos, i_n, n_geom, t_vec, b_vec,
                                  direction, throughput, alive, spec_mat,
                                  alpha_cut, pid)
-            # the Disney BSDF takes the kernel on the card; the others
-            # keep the plain step
-            if config.bsdf == "disney":
-                rays = nee.nee(scene, config, lanes, width, height, depth,
-                               sample_index, stats)
-            else:
-                rays = nee.nee_plain(scene, config, bsdf, lanes, width,
-                                     height, depth, sample_index, stats)
+            rays = nee.nee(scene, config, bsdf, lanes, width, height,
+                           depth, sample_index, stats)
             # one occlusion launch for light and envmap shadow rays; only
             # bounces sort, and depth 0's light rays alone come coherent
             light_only = rays.want.shape[0] == n

@@ -9,25 +9,26 @@ and shading tables, with the ``tvisit`` child-cell tables when
 reference's build, array for array; ``build_device_scene_cached`` keeps
 them in a disk cache.
 
-Same-topology updates (deformed meshes, moved instances) skip the build,
-by one of two refits:
+With ``config.use_tlas`` the build also makes the two-level tables of
+the ``tlas`` intersector (``_build_tlas_tables``): one object-space BLAS
+per mesh slot and its instances' inverses and world boxes.
 
-* ``make_device_refit`` recomputes the world planes and the visit tables
-  with torch ops on the scene's device, re-celling the triangles by a
-  Morton sort under ``config.device_rebuild_cells``; it leaves the wide
-  BVH as it was, so the engines do not take it under ``bvh``;
+Same-topology updates (deformed meshes, moved instances) skip the build,
+by one of two paths:
+
+* ``move_instances_device``, the device update: one CUDA kernel,
+  ``retransform``, writes the world planes, the triangle table and the
+  pack in the build's triangle order; then the scene's TLAS instance
+  tables are made again (``_moved_tlas``) or, in a scene without them,
+  its visit tables are re-celled by a Morton sort (``recell``). It
+  leaves the wide BVH and the BLASes as they were, so the engines do not
+  take it under ``bvh``, nor for a deformation of a scene with TLAS
+  tables;
 * ``refit_deformed``, the host refit, re-transforms the planes in numpy,
   refits the binary BVH and collapses it again, and rebuilds the cell
   tables over their unchanged membership. Unlike rfw_tpu's, it also
   rebuilds the ``tvisit`` child tables, which rfw_tpu's refit leaves
   stale.
-
-With ``config.use_tlas`` the build also makes the two-level tables of
-the ``tlas`` intersector (``_build_tlas_tables``): one object-space BLAS
-per mesh slot and its instances' inverses and world boxes. An instance
-move under ``tlas`` refreshes those and the world planes alone, on the
-scene's device (``move_instances_device``: one CUDA kernel,
-``retransform``, writes the planes in the build's triangle order).
 
 Left out: tables that no ported consumer reads (the per-triangle and
 per-slot Woop matrices, whose rows ``wplanes`` carries, and
@@ -562,7 +563,7 @@ def build_device_scene_cached(instances, materials, lights, skybox, atlas,
 # same-topology updates
 # ---------------------------------------------------------------------------
 
-# the object-space planes a device refit reads per mesh slot
+# the object-space planes a device update reads per mesh slot
 SLOT_PLANES = ("vertices", "normals", "gnormal", "tangent", "bitangent")
 
 
@@ -685,14 +686,6 @@ def instance_matrices(transforms) -> np.ndarray:
                           axis=1).astype(np.float32)
 
 
-def _instance_xforms(transforms, device) -> tuple:
-    """(I, 3, 3) rotations, (I, 3) translations and (I, 3, 3) normal
-    matrices (``instance_matrices``) as float32 tensors on ``device``."""
-    tab = torch.from_numpy(instance_matrices(transforms)).to(device)
-    xf = tab[:, :12].reshape(-1, 3, 4)
-    return xf[..., :3], xf[..., 3], tab[:, 12:].reshape(-1, 3, 3)
-
-
 def _world_tables(verts, normals, gnormal, tangent, bitangent,
                   pack) -> dict:
     """The planes of a re-transform from its world vertices (T, 3, 3) and
@@ -715,84 +708,31 @@ def _world_tables(verts, normals, gnormal, tangent, bitangent,
             "tri_table": tri_table((verts[:, 0], e1, e2)), "tri_pack": tp}
 
 
-def make_device_refit(scene: dict, instances: list[InstancedMesh],
-                      perm: np.ndarray, config: RenderConfig):
-    """A same-topology refresher of the tensor ``scene`` (``scene_to_
-    torch``'s), whose math runs as torch ops on the scene's device.
-
-    Fixed when it is made: the instance structure, the triangle counts
-    and the build's triangle order ``perm``. Each call re-transforms the
-    per-slot object-space planes to world space and recomputes the flat
-    planes, the pack's geometric columns and the visit tables (cells,
-    supers, and the tvisit children when the scene has them). Cell
-    membership is rebuilt by a Morton sort of the triangles under
-    ``config.device_rebuild_cells`` (then ``slot_to_prim`` changes), or
-    kept as built. Either way the kernels' derived tables
-    (``visit_intersect.device_tables``, the triangle table
-    ``traverse.tri_table``) are derived again. The wide-BVH
-    arrays are left as they were: no ported intersector reads them.
-
-    Returns ``apply(slot_planes, transforms)`` → the new scene, where
-    ``slot_planes`` maps mesh slot → {name: (T, ...) float32 tensor on
-    the device} for ``SLOT_PLANES`` and ``transforms`` lists one (4, 4)
-    world transform per instance, in instance order.
-    """
-    slots = [im.mesh_slot for im in instances]
-    tl0 = scene["treelets"]
-    stp = tl0["slot_to_prim"]
-    dev = stp.device
-    k = int(tl0["size"])
-    has_sub = _has_sub(tl0)
-    n_slots = stp.shape[0]
-    n_tris = scene["tri_vertices"].shape[0]
-    rebuild_cells = config.device_rebuild_cells
-    perm_t = torch.from_numpy(np.asarray(perm, np.int64)).to(dev)
-    pad_src = torch.clamp(stp, min=0).long()
-    pad_valid = (stp >= 0).float()[:, None]
-    pad_tail = torch.full((n_slots - n_tris,), -1, dtype=torch.int32,
-                          device=dev)
-
-    def refresh(slot_planes, r, t, nmat):
-        parts = {kk: [] for kk in SLOT_PLANES}
-        for i, slot in enumerate(slots):
-            p = slot_planes[slot]
-            parts["vertices"].append(_apply_to(p["vertices"], r[i]) + t[i])
-            for kk, m in (("normals", nmat), ("gnormal", nmat),
-                          ("tangent", r), ("bitangent", r)):
-                parts[kk].append(_unit(_apply_to(p[kk], m[i])))
-        cat = {kk: torch.cat(v)[perm_t] for kk, v in parts.items()}
-        verts = cat["vertices"]
-        out = _world_tables(verts, cat["normals"], cat["gnormal"],
-                            cat["tangent"], cat["bitangent"],
-                            scene["tri_pack"])
-        if rebuild_cells:
-            slots_new = torch.cat([morton_order(verts).int(), pad_tail])
-            p_src = torch.clamp(slots_new, min=0).long()
-            p_val = (slots_new >= 0).float()[:, None]
-        else:
-            p_src, p_val = pad_src, pad_valid
-        # pad slots: all-zero vertices, so the unreachable w ≡ 1 plane
-        pv = verts[p_src] * p_val[:, :, None]
-        pad_woop = woop_matrices_torch(pv[:, 0], pv[:, 1], pv[:, 2])
-        tl = _cell_tables(pv, pad_woop, p_val, k, has_sub)
-        tl["scene_lo"] = verts.reshape(-1, 3).amin(dim=0)
-        tl["scene_hi"] = verts.reshape(-1, 3).amax(dim=0)
-        if rebuild_cells:
-            tl["slot_to_prim"] = slots_new
-        return out, tl
-
-    def apply(slot_planes, transforms):
-        out, tl_upd = refresh(slot_planes,
-                              *_instance_xforms(transforms, dev))
-        new_scene = dict(scene)
-        new_scene.update(out)
-        tl = dict(scene["treelets"])
-        tl.update(tl_upd)
-        tl.update(device_tables(tl))
-        new_scene["treelets"] = tl
-        return new_scene
-
-    return apply
+def recell(treelets: dict, verts) -> dict:
+    """The visit tables of ``treelets`` made again over the world
+    vertices ``verts`` (T, 3, 3), in the build's triangle order, on their
+    device: the triangles are re-celled by a Morton sort
+    (``morton_order``; ``slot_to_prim`` changes), then the cells, supers
+    and, when the scene has them, the tvisit children are boxed and
+    planed (``_cell_tables``), and the kernels' derived tables
+    (``visit_intersect.device_tables``) made again."""
+    stp = treelets["slot_to_prim"]
+    pad_tail = torch.full((stp.shape[0] - verts.shape[0],), -1,
+                          dtype=torch.int32, device=verts.device)
+    slots = torch.cat([morton_order(verts).int(), pad_tail])
+    p_src = torch.clamp(slots, min=0).long()
+    p_val = (slots >= 0).float()[:, None]
+    # pad slots: all-zero vertices, so the unreachable w ≡ 1 plane
+    pv = verts[p_src] * p_val[:, :, None]
+    pad_woop = woop_matrices_torch(pv[:, 0], pv[:, 1], pv[:, 2])
+    tl = dict(treelets)
+    tl.update(_cell_tables(pv, pad_woop, p_val, int(treelets["size"]),
+                           _has_sub(treelets)))
+    tl["scene_lo"] = verts.reshape(-1, 3).amin(dim=0)
+    tl["scene_hi"] = verts.reshape(-1, 3).amax(dim=0)
+    tl["slot_to_prim"] = slots
+    tl.update(device_tables(tl))
+    return tl
 
 
 # the world planes a change of instance transforms or vertices rewrites
@@ -828,8 +768,7 @@ def retransform_instances(scene: dict, instances: list[InstancedMesh],
     """The scene with its geometric world planes (and the pack's
     geometric columns) made again from ``instances`` in numpy, under the
     build's triangle order ``perm``, for the host refit; every other
-    table is the scene's (a scene with TLAS tables moves on its device,
-    ``move_instances_device``). The new planes, the traversal kernel's
+    table is the scene's. The new planes, the traversal kernel's
     triangle table derived from them (``traverse.tri_table``) and the
     pack are numpy arrays, and the new pack is also returned as
     ``_pack_host``."""
@@ -871,15 +810,17 @@ def _moved_tlas(scene: dict, instances: list[InstancedMesh]) -> dict:
     return tl
 
 
-# what a device move writes, in the order of the kernel's outputs
+# what a device update's re-transform writes, in the order of the
+# kernel's outputs
 MOVE_PLANES = ("tri_vertices", "tri_normals", "tri_gnormal", "tri_tangent",
                "tri_bitangent", "tri_area", "tri_table", "tri_pack")
 
 
 def move_tables(scene: dict, instances: list[InstancedMesh],
                 slot_planes: dict) -> dict:
-    """What every device move of the tensor ``scene`` reads besides the
-    transforms, made once a full build on the scene's device: "obj", the
+    """What every device update of the tensor ``scene`` reads besides the
+    transforms, made on the scene's device once a full build and again
+    after each change of a mesh version, which changes "obj": "obj", the
     object-space planes of the mesh slots (``slot_planes``: mesh slot ->
     {name: tensor} for ``SLOT_PLANES``) concatenated in the order the
     slots are first seen; "base" (I,) int32, the first row in them of
@@ -909,7 +850,7 @@ def move_tables(scene: dict, instances: list[InstancedMesh],
 
 
 def retransform(row, prim, base, xf, obj: dict, pack) -> dict:
-    """The planes of a device move (``MOVE_PLANES``): triangle j is
+    """The planes of a device update (``MOVE_PLANES``): triangle j is
     object-space triangle ``base[row[j]] + prim[j]`` of ``obj``
     (``SLOT_PLANES``) under row ``row[j]`` of ``xf`` (``instance_
     matrices``); the pack's other columns are ``pack``'s. On CUDA tensors
@@ -947,8 +888,8 @@ def retransform(row, prim, base, xf, obj: dict, pack) -> dict:
 
 def retransform_ref(row, prim, base, xf, obj: dict, pack) -> dict:
     """The plain version of ``retransform``, vectorised over triangles:
-    the device refit's arithmetic (``_apply_to``, ``_unit``,
-    ``_world_tables``) on each triangle's own instance row."""
+    ``_apply_to``, ``_unit`` and ``_world_tables`` on each triangle's own
+    instance row."""
     r = row.long()
     src = base.long()[r] + prim.long()
     m = xf[r]
@@ -964,13 +905,16 @@ def retransform_ref(row, prim, base, xf, obj: dict, pack) -> dict:
 
 def move_instances_device(scene: dict, tables: dict,
                           instances: list[InstancedMesh]) -> dict:
-    """The planes of the tensor ``scene`` that new transforms of its
-    instances change, made on its device: the world planes, the triangle
-    table and the pack in the build's triangle order (``retransform``
-    over ``tables``, ``move_tables``' of the last full build) and, in a
-    scene with TLAS tables, its instances' tables (``_moved_tlas``), all
-    as new tensors. What it uploads is the (I, 21) transform table
-    (``instance_matrices``) and the instance tables."""
+    """The device update of a same-topology change (moved instances,
+    deformed meshes) of the tensor ``scene``: the tables it changes, made
+    again on its device as new tensors. The world planes, the triangle
+    table and the pack in the build's triangle order come from
+    ``retransform`` over ``tables`` (``move_tables``'); then a scene with
+    TLAS tables gets its instances' tables (``_moved_tlas``; its BLASes
+    and visit tables stay), and one without them its visit tables
+    re-celled over the new vertices (``recell``; its wide BVH stays).
+    What it uploads is the (I, 21) transform table (``instance_matrices``)
+    and the instance tables."""
     with tracing.span("scene.retransform"):
         up = {"xf": instance_matrices([im.transform for im in instances])}
         if "tlas" in scene:
@@ -981,6 +925,8 @@ def move_instances_device(scene: dict, tables: dict,
                               tables["base"], up.pop("xf"), tables["obj"],
                               scene["tri_pack"])
         out.update(up)
+        if "tlas" not in scene:
+            out["treelets"] = recell(scene["treelets"], out["tri_vertices"])
     return out
 
 

@@ -22,7 +22,8 @@ A span or counter never reads a device value, and nothing is written to
 disk: ``snapshot()`` hands out what was recorded since ``clear()``.
 
 The counters the port records: ``samples``, ``updates``, ``device_moves``
-and ``upload_bytes`` (``render/engines.py``, ``render/scene_data.py``);
+(the updates that took the device update, ``move_instances_device``) and
+``upload_bytes`` (``render/engines.py``, ``render/scene_data.py``);
 ``tvisit.calls``, ``tvisit_rays.closest``, ``tvisit_rays.any`` and
 ``tvisit.passes`` (``render/intersectors.py``, ``ops/tvisit_intersect.py``);
 ``nee.kernel`` and ``nee.plain`` (``ops/nee.py``: each NEE step of a

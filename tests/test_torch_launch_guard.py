@@ -147,7 +147,7 @@ def _nee_lanes():
 def _nee():
     scene, lanes = _nee_lanes()
     return "rfw_nee", lanes.pid, lambda: nee.nee(
-        scene, RenderConfig(), lanes, 16, 8, 0, 3, {})
+        scene, RenderConfig(), nee.disney, lanes, 16, 8, 0, 3, {})
 
 
 def _nee_add():

@@ -202,7 +202,7 @@ def test_cpu_lanes_take_the_plain_step():
     tracing.clear()
     with tracing.recording():
         stats = {}
-        got = nee.nee(scene, cfg, lanes, 1920, 1080, 0, 3, stats)
+        got = nee.nee(scene, cfg, disney, lanes, 1920, 1080, 0, 3, stats)
         occ = torch.zeros(got.want.shape, dtype=torch.bool)
         rad = nee.add_unoccluded(torch.zeros((4096, 3)), got, occ)
     assert tracing.snapshot().counters == {"nee.plain": 1}
@@ -222,18 +222,56 @@ def test_cpu_lanes_take_the_plain_step():
 @pytest.mark.parametrize("bsdf", ["disney", "lambert"])
 def test_depth_stage_sends_disney_to_the_kernel_step(scenes, monkeypatch,
                                                       bsdf):
+    """The depth stage makes one NEE call, ``nee.nee`` with the config's
+    BSDF module, which chooses the step; on CPU lanes it takes the plain
+    step of that BSDF."""
     calls = []
-    monkeypatch.setattr(nee, "nee", lambda *a: calls.append("nee")
-                        or nee.nee_plain(a[0], a[1], disney, *a[2:]))
-    real_plain = nee.nee_plain
+    real_nee, real_plain = nee.nee, nee.nee_plain
+    monkeypatch.setattr(nee, "nee", lambda *a: calls.append(
+        ("nee", a[2])) or real_nee(*a))
     monkeypatch.setattr(nee, "nee_plain", lambda *a: calls.append(
         ("plain", a[2])) or real_plain(*a))
     _run_port(scenes[1], _lanes(scenes[0], 5),
               RenderConfig(max_path_length=3, bsdf=bsdf), 1, 3)
+    module = {"disney": disney, "lambert": lambert}[bsdf]
+    assert calls == [("nee", module), ("plain", module)]
+
+
+@pytest.mark.parametrize("bsdf", ["disney", "lambert"])
+def test_nee_launches_the_kernel_for_card_lanes_under_disney(monkeypatch,
+                                                             bsdf):
+    """``nee.nee`` on lanes it takes for card lanes (a stand-in library):
+    the Disney BSDF launches the kernel once and counts ``nee.kernel``,
+    another BSDF runs the plain step and counts ``nee.plain``."""
+    scene, lanes = _case_lanes()
+    launched = []
+
+    class Lib:
+        def rfw_nee(self, addr, stream):
+            launched.append(addr)
+            return 0
+
+    import contextlib
+    monkeypatch.setattr(cuda_lib, "kernel_device", lambda t, family: True)
+    monkeypatch.setattr(cuda_lib, "launch", contextlib.contextmanager(
+        lambda dev: iter([(Lib(), None)])))
+    before = cuda_lib.launch_counts["nee"]
+    module = {"disney": disney, "lambert": lambert}[bsdf]
+    tracing.clear()
+    with tracing.recording():
+        rays = nee.nee(scene, RenderConfig(bsdf=bsdf), module, lanes, 1920,
+                       1080, 0, 3, {})
+    counters = tracing.snapshot().counters
     if bsdf == "disney":
-        assert calls == ["nee", ("plain", disney)]
+        assert len(launched) == 1 and counters == {"nee.kernel": 1}
+        assert cuda_lib.launch_counts["nee"] == before + 1
     else:
-        assert calls == [("plain", lambert)]
+        assert not launched and counters == {"nee.plain": 1}
+        assert cuda_lib.launch_counts["nee"] == before
+        want = nee.nee_plain(scene, RenderConfig(bsdf=bsdf), lambert, lanes,
+                             1920, 1080, 0, 3, {})
+        for a, b in zip(rays, want):
+            assert torch.equal(a, b)
 
 
 def _c_fields():
@@ -279,7 +317,7 @@ def test_kernel_route_fills_the_argument_block(monkeypatch):
     monkeypatch.setattr(cuda_lib, "launch", contextlib.contextmanager(
         lambda dev: iter([(Lib(), None)])))
     before = cuda_lib.launch_counts["nee"]
-    rays = nee.nee(scene, cfg, lanes, 1920, 1080, 2, 7, {})
+    rays = nee.nee(scene, cfg, disney, lanes, 1920, 1080, 2, 7, {})
     assert cuda_lib.launch_counts["nee"] == before + 1
     a = seen["args"]
     assert a.pid == lanes.pid.data_ptr()

@@ -79,7 +79,7 @@ def test_debug_checks_count_the_same_scrubs(card):
     scene, lanes = nee_args(synthetic.nee_case(3, SMALL, nan_share=0.01),
                             card)
     stats_k, stats_p = {"nan_scrubbed": torch.tensor(5, device=card)}, {}
-    nee.nee(scene, cfg, lanes, 1920, 1080, 0, 3, stats_k)
+    nee.nee(scene, cfg, disney, lanes, 1920, 1080, 0, 3, stats_k)
     nee.nee_plain(scene, cfg, disney, lanes, 1920, 1080, 0, 3, stats_p)
     assert int(stats_p["nan_scrubbed"]) > 0
     assert int(stats_k["nan_scrubbed"]) == int(stats_p["nan_scrubbed"]) + 5
@@ -90,7 +90,7 @@ def test_debug_checks_count_the_same_scrubs(card):
 def test_add_unoccluded_reads_rows_of_any_stride(card):
     cfg = RenderConfig()
     scene, lanes = nee_args(synthetic.nee_case(5, SMALL), card)
-    rays = nee.nee(scene, cfg, lanes, 1920, 1080, 0, 3, {})
+    rays = nee.nee(scene, cfg, disney, lanes, 1920, 1080, 0, 3, {})
     packed = torch.rand((SMALL, 18), device=card)
     radiance = packed[:, 13:16]
     occ = torch.rand(rays.want.shape, device=card) < 0.5
@@ -130,8 +130,8 @@ def test_an_engine_frame_launches_the_kernel_once_a_stage(card, monkeypatch):
         assert cuda_lib.launch_counts[k] == before[k] + stages, k
 
     # the same frames with the plain step on the card: equal bit for bit
-    def plain(scene, config, lanes, *args):
-        return nee.nee_plain(scene, config, disney, lanes, *args)
+    def plain(scene, config, bsdf, lanes, *args):
+        return nee.nee_plain(scene, config, bsdf, lanes, *args)
     monkeypatch.setattr(nee, "nee", plain)
     want = rs.render_frame(status=RenderStatus.RESET, samples=2)
     assert np.array_equal(frame.view(np.int32), want.view(np.int32))

@@ -4,19 +4,21 @@ against rfw_tpu.
 
 * A deformed mesh or a moved instance renders like a fresh build of the
   same geometry (RMSE < 1e-3, tests/test_refit.py's bar), through visit
-  and tvisit, by the device refit, without a full build; a change of
-  topology builds in full; with ``device_refit=False`` and under the
-  ``bvh`` intersector (``megakernel``), a same-topology update takes the
-  host refit, without a full build, and renders like a fresh build.
+  and tvisit, by the device update (``scene_data.move_instances_device``)
+  without a full build, also deformations and moves in turn, whose move
+  tables follow the mesh versions; a change of topology builds in full;
+  with ``device_refit=False`` and under the ``bvh`` intersector
+  (``megakernel``), a same-topology update takes the host refit, without
+  a full build, and renders like a fresh build.
 * The host refit's tables equal rfw_tpu's ``refit_deformed`` on the same
   inputs: the wide BVH, the planes, the pack and the cell tables; its
   tvisit child tables equal a fresh build's where that build keeps the
   cells, and rfw_tpu's stay as they were built.
-* ``make_device_refit``'s tables equal rfw_tpu's on the same inputs:
-  the Morton order and ``slot_to_prim`` exactly, the planes, bounds and
-  pack within 1e-5, but for the Woop w rows, which the port makes as
-  the build does (README, deviations); the kernels' derived tables are
-  made again.
+* The device update's tables equal rfw_tpu's device refit
+  (``make_device_refit``) on the same inputs: the Morton order and
+  ``slot_to_prim`` exactly, the planes, bounds and pack within 1e-5, but
+  for the Woop w rows, which the port makes as the build does (README,
+  deviations); the kernels' derived tables are made again.
 * ``build_device_scene_cached`` gives the uncached build, and never
   reads an entry that other build sources wrote.
 * Config 4 (a skinned glTF, built at t = 0 and posed at t = 0.5 through
@@ -89,16 +91,32 @@ def _wavy(build, shift=0.0, bend=0.0):
     return build(pos, faces)
 
 
-def _count_builds(monkeypatch):
+def _count_calls(monkeypatch, name):
     calls = {"n": 0}
-    real = scene_data.build_device_scene
+    real = getattr(scene_data, name)
 
     def counting(*a, **k):
         calls["n"] += 1
         return real(*a, **k)
 
-    monkeypatch.setattr(scene_data, "build_device_scene", counting)
+    monkeypatch.setattr(scene_data, name, counting)
     return calls
+
+
+def _count_builds(monkeypatch):
+    return _count_calls(monkeypatch, "build_device_scene")
+
+
+def _count_device_updates(monkeypatch):
+    return _count_calls(monkeypatch, "move_instances_device")
+
+
+def _device_update(scene, instances):
+    """The device update of the tensor ``scene`` to ``instances``, over
+    move tables made of their meshes' planes."""
+    tables = scene_data.move_tables(scene, instances,
+                                    _slot_planes(instances, True))
+    return scene_data.move_instances_device(scene, tables, instances)
 
 
 def _engine(intersector, **cfg_kw):
@@ -152,18 +170,19 @@ def _move(i):
 
 @pytest.mark.parametrize("intersector", ["visit", "tvisit"])
 def test_deform_refit_matches_fresh_build(monkeypatch, intersector):
-    """A deformed mesh (same topology) takes the device refit and renders
+    """A deformed mesh (same topology) takes the device update and renders
     like a fresh build; accumulation restarts."""
     eng = _engine(intersector)
     _scene(eng, _wavy(build_triangles))
     _render(eng)
     before = eng._scene["treelets"]
     calls = _count_builds(monkeypatch)
+    updates = _count_device_updates(monkeypatch)
     deformed = _wavy(build_triangles, shift=0.9, bend=0.3)
     eng.set_mesh(2, deformed)
     moved = _render(eng)
     assert calls["n"] == 0, "deformation took the full-build path"
-    assert eng._device_refit is not None and eng._refits == 0
+    assert updates["n"] == 1 and eng._refits == 0
     assert eng._sample_count == 2
     tl = eng._scene["treelets"]
     assert not torch.equal(tl["wplanes_tm"], before["wplanes_tm"])
@@ -179,7 +198,7 @@ def test_deform_refit_matches_fresh_build(monkeypatch, intersector):
 
 @pytest.mark.parametrize("intersector", ["visit", "tvisit"])
 def test_instance_moves_never_hit_full_build(monkeypatch, intersector):
-    """Ten instance moves under max_refits=4: the device refit with fresh
+    """Ten instance moves under max_refits=4: the device update with fresh
     Morton cells has no drift, so no move builds in full."""
     eng = _engine(intersector, max_refits=4)
     wavy = _wavy(build_triangles)
@@ -199,22 +218,62 @@ def test_instance_moves_never_hit_full_build(monkeypatch, intersector):
     assert moved.mean() > 1e-4
 
 
+@pytest.mark.parametrize("intersector", ["visit", "tvisit"])
+def test_deformations_and_moves_take_the_device_update(monkeypatch,
+                                                       intersector):
+    """A deformation, a move, then another deformation: each takes one
+    device update and no build, and renders like a fresh build of its
+    state. The move tables follow the mesh version: made again after each
+    deformation, kept across the move, their object-space planes the
+    current mesh's."""
+    eng = _engine(intersector)
+    _scene(eng, _wavy(build_triangles))
+    _render(eng)
+    builds = _count_builds(monkeypatch)
+    updates = _count_device_updates(monkeypatch)
+    first = _wavy(build_triangles, shift=0.9, bend=0.3)
+    second = _wavy(build_triangles, shift=-0.6, bend=-0.2)
+    eye = np.eye(4, dtype=np.float32)
+    steps = [("deform", first, eye), ("move", first, _move(4)),
+             ("deform", second, _move(4))]
+    frames, tables = [], []
+    for kind, mesh, xf in steps:
+        if kind == "deform":
+            eng.set_mesh(2, mesh)
+        else:
+            eng.set_instance(1, 1, xf)
+        frames.append(_render(eng))
+        t = eng._move_tables
+        tables.append(t)
+        base, n = int(t["base"][2]), mesh.vertices.shape[0]
+        assert torch.equal(t["obj"]["vertices"][base:base + n],
+                           torch.from_numpy(np.float32(mesh.vertices)))
+    assert builds["n"] == 0 and updates["n"] == 3 and eng._refits == 0
+    assert tables[1] is tables[0] and tables[2] is not tables[1]
+    monkeypatch.undo()
+    monkeypatch.setenv("RFW_NO_SCENE_CACHE", "1")
+    for (_, mesh, xf), frame in zip(steps, frames):
+        assert _rmse(frame, _fresh(intersector, mesh, xf)) < 1e-3
+        assert frame.mean() > 1e-4
+
+
 def test_host_refit_is_not_ported(monkeypatch):
     """Checks that ``device_refit=False`` takes the host refit. (The name
     is kept from when the host refit was not ported and this option
-    raised.) A same-topology update builds nothing, makes no device refit,
+    raised.) A same-topology update builds nothing, runs no device update,
     and renders like a fresh build."""
     eng = _engine("visit", device_refit=False)
     _scene(eng, _wavy(build_triangles))
     assert np.isfinite(_render(eng)).all()
+    updates = _count_device_updates(monkeypatch)
     eng.prewarm_instance_moves()                 # a no-op, as in rfw_tpu
-    assert eng._device_refit is None
+    assert eng._move_tables is None
     calls = _count_builds(monkeypatch)
     deformed = _wavy(build_triangles, shift=0.9)
     eng.set_mesh(2, deformed)
     img = _render(eng)
-    assert calls["n"] == 0
-    assert eng._device_refit is None and eng._refits == 1
+    assert calls["n"] == 0 and updates["n"] == 0
+    assert eng._move_tables is None and eng._refits == 1
     monkeypatch.undo()
     monkeypatch.setenv("RFW_NO_SCENE_CACHE", "1")
     assert _rmse(img, _fresh("visit", deformed)) < 1e-3
@@ -236,7 +295,7 @@ def _megakernel(**cfg_kw):
 
 
 def test_megakernel_deformation_takes_host_refit(monkeypatch):
-    """Under ``bvh`` the device refit would leave the wide BVH stale: a
+    """Under ``bvh`` the device update would leave the wide BVH stale: a
     deformation and a move take the host refit (no full build), refit
     the BVH and its node table, and render like a fresh build."""
     eng = _megakernel()
@@ -253,7 +312,7 @@ def test_megakernel_deformation_takes_host_refit(monkeypatch):
     eng.set_instance(1, 1, _move(3))
     img = _render(eng)
     assert calls["n"] == 0 and len(refits) == 1
-    assert eng._device_refit is None and eng._refits == 1
+    assert eng._move_tables is None and eng._refits == 1
     bvh = eng._scene["bvh"]
     assert not torch.equal(bvh["bmin"], before["bmin"])
     # the int columns are bit patterns (-1 reads as a NaN)
@@ -425,7 +484,7 @@ def test_prewarm_instance_moves_keeps_state(monkeypatch):
     _render(eng)
     scene, geo_key = eng._scene, eng._geo_key
     eng.prewarm_instance_moves()
-    assert eng._device_refit is not None
+    assert eng._move_tables is not None
     assert eng._scene is scene and eng._geo_key == geo_key
     calls = _count_builds(monkeypatch)
     eng.set_instance(1, 1, _move(2))
@@ -480,9 +539,7 @@ def test_make_device_refit_tables_match_reference(case):
     got_ref = jax_sd.make_device_refit(ref_in, j_inst, ref["_perm_host"],
                                        j_cfg)(_slot_planes(j_inst, False),
                                               [im.transform for im in j_inst])
-    got = scene_data.make_device_refit(port, p_inst, port_np["_perm_host"],
-                                       cfg)(_slot_planes(p_inst, True),
-                                            [im.transform for im in p_inst])
+    got = _device_update(port, p_inst)
     tl, tl_ref = got["treelets"], got_ref["treelets"]
     n_tris = port_np["tri_vertices"].shape[0]
     stp_ref = np.asarray(tl_ref["slot_to_prim"])
@@ -539,9 +596,9 @@ def test_make_device_refit_tables_match_reference(case):
 def test_tri_table_is_derived_again_after_refit(path):
     """The traversal kernel's triangle table follows the vertices through
     ``retransform_instances``, the host refit (through ``scene_to_torch``)
-    and the device refit: it is the table of the new vertices, not the
+    and the device update: it is the table of the new vertices, not the
     build's, and row for row a fresh build's of the same geometry
-    (within 1e-5 after the device refit, whose transforms are torch's
+    (within 1e-5 after the device update, whose transforms are torch's
     separate products; exactly after the host's numpy)."""
     cfg = RenderConfig()
     eye = np.eye(4, dtype=np.float32)
@@ -562,8 +619,7 @@ def test_tri_table_is_derived_again_after_refit(path):
             pack_host=built["_pack_host"]), "cpu")
         table = out["tri_table"]
     else:
-        out = scene_data.make_device_refit(scene, inst, perm, cfg)(
-            _slot_planes(inst, True), [im.transform for im in inst])
+        out = _device_update(scene, inst)
         table = out["tri_table"]
     verts = torch.as_tensor(out["tri_vertices"])
     assert table.shape == (verts.shape[0], 3, 4)
@@ -614,11 +670,11 @@ def _slot_instances(last):
 
 @pytest.mark.parametrize("case", sorted(_MOVES))
 def test_device_move_plain_version_matches_retransform_instances(case):
-    """The device move's plain version (``move_tables``, then
+    """The device update's plain version (``move_tables``, then
     ``move_instances_device`` on CPU tensors, which runs
     ``retransform_ref``) writes every plane, the triangle table and the
     pack's geometric columns as the host's ``retransform_instances``
-    does, within 1e-5 (the device refit's bar: torch's separate products
+    does, within 1e-5 (the device update's bar: torch's separate products
     against numpy's einsums), and keeps the pack's other columns bit for
     bit; its map puts each triangle on its instance's object-space
     triangle."""
@@ -687,11 +743,10 @@ def test_build_device_scene_cached_equals_uncached(tmp_path, monkeypatch):
             else:
                 assert a == b, k
     assert not second["tri_pack"].flags.writeable      # memory-mapped
-    # a hit takes the device refit as a build does
+    # a hit takes the device update as a build does
     t = scene_data.scene_to_torch(second, "cpu")
     moved = _instances(scene_data, build_triangles, {"shift": 0.3}, _move(2))
-    out = scene_data.make_device_refit(t, moved, second["_perm_host"], cfg)(
-        _slot_planes(moved, True), [im.transform for im in moved])
+    out = _device_update(t, moved)
     assert torch.isfinite(out["tri_pack"]).all()
 
 
@@ -756,7 +811,7 @@ def test_config4_refit_frame_matches_reference(tmp_path, monkeypatch):
     rs = port(0.0, 0.5)
     calls = _count_builds(monkeypatch)
     refit = rs.render_frame(samples=8)
-    assert calls["n"] == 0 and rs.context._device_refit is not None
+    assert calls["n"] == 0 and rs.context._move_tables is not None
     assert rs.context._driver is not None          # 4 chunks: compacted
     fresh = port(0.5).render_frame(samples=8)
     assert calls["n"] == 1

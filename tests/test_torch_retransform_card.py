@@ -1,10 +1,11 @@
-"""The re-transform kernel of a ``tlas`` instance move
+"""The re-transform kernel of a device update
 (``rfw_tpu_torch/csrc/retransform_kernel.cu``) on the card: equal bit for
 bit to its plain version, ``render/scene_data.py::retransform_ref``, on
 the same CUDA tensors, at the benchmark sphereflake's layout
 (``synthetic.retransform_case``, 1,049,608 triangles), and launched once
-a move by an engine, whose moved planes equal the plain version's on the
-engine's own tables bit for bit, and a CPU engine's within 1e-6. The
+an update by an engine (a ``tlas`` move; a ``visit`` deformation and
+move), whose new planes equal the plain version's on the engine's own
+tables bit for bit, and a CPU engine's within 1e-6. The
 plain version on the card's CPU differs from the same on its CUDA tensors
 in the last bit of about 1 % of the unit vectors and areas (a square
 root or quotient of the CPU's; 1.2e-7 at most on a sphereflake-sized
@@ -58,7 +59,7 @@ def test_kernel_equals_its_plain_version_bit_for_bit(card, seed):
                                    atol=1e-6, msg=k)
 
 
-def _engine(device):
+def _engine(device, intersector):
     eng = create_engine("megakernel", RenderConfig(), device=device)
     v, f = synthetic.icosphere(2)
     eng.set_mesh(0, make_quad([0, 1, 0], [0, 0, 0], 8, 8, 0).triangles())
@@ -68,23 +69,34 @@ def _engine(device):
         m = np.eye(4, dtype=np.float32)
         m[:3, 3] = (1.5 * i - 4.5, 1.0, 0.5 * i)
         eng.set_instance(i, 1, m)
-    eng.set_setting("intersector", "tlas")
+    eng.set_setting("intersector", intersector)
     eng.update()
     return eng
 
 
-def test_each_move_launches_the_kernel_once(card):
-    engines = {"cuda": _engine(card), "cpu": _engine("cpu")}
+@pytest.mark.parametrize("intersector", ["tlas", "visit"])
+def test_each_move_launches_the_kernel_once(card, intersector):
+    """Three updates: under ``tlas`` three moves, under ``visit`` a
+    deformation of the sphere mesh, a move, a deformation."""
+    engines = {"cuda": _engine(card, intersector),
+               "cpu": _engine("cpu", intersector)}
     rng = np.random.default_rng(3)
+    v, f = synthetic.icosphere(2)
     for step in range(3):
         q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
         m = np.eye(4, dtype=np.float32)
         m[:3, :3] = q * rng.uniform(0.5, 1.5, 3)
         m[:3, 3] = rng.uniform(-3.0, 3.0, 3)
+        bent = build_triangles(
+            (v * rng.uniform(0.8, 1.2, (len(v), 1))).astype(np.float32), f)
+        deform = intersector == "visit" and step != 1
         before = cuda_lib.launch_counts["retransform"]
         pack = engines["cuda"]._scene["tri_pack"]
         for eng in engines.values():
-            eng.set_instance(1 + step, 1, m)
+            if deform:
+                eng.set_mesh(1, bent)
+            else:
+                eng.set_instance(1 + step, 1, m)
             eng.update()
         torch.cuda.synchronize()
         assert cuda_lib.launch_counts["retransform"] == before + 1

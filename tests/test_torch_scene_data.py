@@ -3,7 +3,7 @@
 Each side builds its instances with its own package's types from the
 same numpy inputs, and both builds are numpy, so equality is exact.
 Keys the port leaves out (the host refit's caches, TLAS tables, tables
-no ported consumer reads) are simply not compared; the device refit's
+no ported consumer reads) are simply not compared; the refits'
 triangle order ``_perm_host`` is."""
 
 import numpy as np

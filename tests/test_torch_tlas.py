@@ -269,7 +269,7 @@ def test_tlas_tables_equal_rfw_tpu():
             assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
     assert [len(b["inst_base"]) for b in mine["blas"]] == [3, 2, 1]
     # an instance move refreshes the instance tables (``_moved_tlas``, the
-    # device move's) as rfw_tpu's does
+    # device update's) as rfw_tpu's does
     moved = _shared_instances(scene_data, build_triangles, shift=0.75)
     j_moved = _shared_instances(j_sd, j_build_triangles, shift=0.75)
     got = scene_data._moved_tlas(
@@ -457,6 +457,7 @@ def test_instance_move_refreshes_instance_tables_only(monkeypatch):
     view = _view(rfw_tpu_torch.Camera)
     eng.render_frame(view, RenderStatus.RESET, samples=2)
     blas_nodes = [b["nodes"] for b in eng._scene["tlas"]["blas"]]
+    pack_host = eng._pack_host
     builds = _count_builds(monkeypatch)
     moves = _count_calls(monkeypatch, "move_instances_device")
     host = _count_calls(monkeypatch, "retransform_instances")
@@ -469,7 +470,7 @@ def test_instance_move_refreshes_instance_tables_only(monkeypatch):
     moved = eng.render_frame(view, RenderStatus.RESET, samples=2)
     assert builds["n"] == 0 and moves["n"] == 1 and host["n"] == 0
     assert counters["device_moves"] == counters["updates"] == 1
-    assert eng._pack_host is None
+    assert eng._pack_host is pack_host          # the build's, kept
     assert all(a is b["nodes"] for a, b in zip(
         blas_nodes, eng._scene["tlas"]["blas"]))
     fresh = _port_engine("megakernel", "tlas", moved=target).render_frame(
@@ -478,8 +479,8 @@ def test_instance_move_refreshes_instance_tables_only(monkeypatch):
 
 
 def test_move_then_deformation_under_tlas_builds_in_full(monkeypatch):
-    """A deformation after a device move (which dropped the host pack)
-    builds in full, and renders as a fresh build of both changes."""
+    """A deformation after a device update builds in full, and renders as a
+    fresh build of both changes."""
     eng = _port_engine("megakernel", "tlas")
     view = _view(rfw_tpu_torch.Camera)
     eng.render_frame(view, RenderStatus.RESET, samples=1)
@@ -502,12 +503,19 @@ def test_move_then_deformation_under_tlas_builds_in_full(monkeypatch):
     assert np.abs(deformed - want).max() < 1e-4
 
 
-def test_move_under_bvh_takes_the_host_refit(monkeypatch):
+@pytest.mark.parametrize("engine,intersector,use_tlas", [
+    ("megakernel", "bvh", False), ("wavefront", "visit", True)])
+def test_move_under_bvh_takes_the_host_refit(monkeypatch, engine,
+                                             intersector, use_tlas):
     """Under ``bvh`` a move is the host refit's: it goes through
-    ``retransform_instances``, never the device move."""
-    eng = _port_engine("megakernel", "bvh")
+    ``retransform_instances``, never the device update. In a scene with
+    TLAS tables under another intersector than ``tlas`` (``visit`` here)
+    a move builds in full: the host refit would leave the TLAS tables
+    stale, and the device update re-cells only scenes without them."""
+    eng = _port_engine(engine, intersector, use_tlas=use_tlas)
     view = _view(rfw_tpu_torch.Camera)
     eng.render_frame(view, RenderStatus.RESET, samples=1)
+    assert ("tlas" in eng._scene) == use_tlas
     builds = _count_builds(monkeypatch)
     moves = _count_calls(monkeypatch, "move_instances_device")
     host = _count_calls(monkeypatch, "retransform_instances")
@@ -516,9 +524,11 @@ def test_move_under_bvh_takes_the_host_refit(monkeypatch):
     tracing.clear()
     with tracing.recording():
         moved = eng.render_frame(view, RenderStatus.RESET, samples=1)
-    assert builds["n"] == 0 and host["n"] == 1 and moves["n"] == 0
+    assert moves["n"] == 0
+    assert (builds["n"], host["n"]) == ((1, 0) if use_tlas else (0, 1))
     assert "device_moves" not in tracing.snapshot().counters
-    fresh = _port_engine("megakernel", "bvh", moved=target).render_frame(
+    fresh = _port_engine(engine, intersector, moved=target,
+                         use_tlas=use_tlas).render_frame(
         view, RenderStatus.RESET, samples=1)
     assert np.abs(moved - fresh).max() < 1e-4
 

@@ -590,7 +590,7 @@ def _quad_engine(moved=None):
 
 
 def test_move_refreshes_the_rows_the_kernels_read(monkeypatch):
-    """After an instance move (engines._move_instances, no full build),
+    """After an instance move (the device update, no full build),
     every buffer the walk kernel reads, and the premask's boxes, equal a
     fresh build's of the moved scene, bit for bit."""
     eng = _quad_engine()
