@@ -79,7 +79,14 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    (all four light types, both picks, glass, the hashed pair, the envmap
    per lane, planted NaNs under debug_checks), one launch, its device
    time, its bytes bound and the plain version's time, and the same for
-   the second kernel, ``add_unoccluded``;
+   the second kernel, ``add_unoccluded``; then (phase 5c,
+   ``phase_extend``) the BSDF extension kernel bit for bit against
+   ``ops/extension.py::extend_plain`` on the slice's own depth-0 and
+   bounce lanes of chunk 0 and on ``synthetic.extend_case``'s made-up
+   lanes (a depth-0 chunk in tile order and a scattered bounce chunk;
+   glass, metallic, subsurface, back-face, alpha-cut, dead and NaN
+   lanes; Russian roulette on and off), its ptxas line, one launch, its
+   device time beside its bytes bound, and the plain version's time;
 6. the tvisit slice: the same scene, camera and samples after the
    switch; the expand, tvisit, visit and enum counters must all grow,
    and the frame must lie within RMSE 2e-3 of phase 5's;
@@ -185,7 +192,8 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
    the kernels of its engine and intersector and no other (traverse on
    megakernel, the two tlas kernels and, for its moves, the
    re-transform under --tlas, enum and visit on the viewer's
-   wavefront), and of each
+   wavefront; the extension kernel wherever the Disney BSDF shades),
+   and of each
    kernel its launch with the most live lanes is held bit for bit to its
    plain version; then the example's Cornell at 64², 8 spp on
    megakernel, card against CPU (RMSE < 2e-3);
@@ -200,8 +208,8 @@ Needs one CUDA card; imports no JAX. Phases, one or more lines each:
 Every scene is built cold (RFW_NO_SCENE_CACHE, RFW_NO_TEX_CACHE). Any
 failure raises (non-zero exit, no result). The last four lines are
 phase 8's launches per deformation frame, the kernel table as JSON
-(ten kernels; its launches from phases 5, 6, 9, 10, 11, 12 and 13, the
-NEE's two from phase 5's windows, and split by phase in
+(eleven kernels; its launches from phases 5, 6, 9, 10, 11, 12 and 13,
+the NEE's two from phase 5's windows, and split by phase in
 ``launches_by_phase``; ``ms`` one launch between two
 events, ``device_ms`` the device time), the card's name and power
 limit, and the run's JSON result.
@@ -233,9 +241,11 @@ SOURCES = {"enum": "rfw_tpu_torch/csrc/visit_kernels.cu",
            "traverse": "rfw_tpu_torch/csrc/traverse_kernel.cu",
            "tlas_premask": "rfw_tpu_torch/csrc/tlas_kernel.cu",
            "tlas_walk": "rfw_tpu_torch/csrc/tlas_kernel.cu",
-           "retransform": "rfw_tpu_torch/csrc/retransform_kernel.cu"}
+           "retransform": "rfw_tpu_torch/csrc/retransform_kernel.cu",
+           "extend": "rfw_tpu_torch/csrc/extend_kernel.cu"}
 # expand, traverse and the two tlas kernels replace XLA steps, not Pallas
-# kernels; retransform a numpy step on the host
+# kernels; retransform a numpy step on the host; extend the XLA-fused
+# BSDF extension of rfw_tpu's depth stage
 REPLACES = {"enum": "rfw_tpu/ops/visit_intersect.py:94",
             "visit": "rfw_tpu/ops/visit_intersect.py:303",
             "expand": "rfw_tpu/ops/tvisit_intersect.py:89",
@@ -243,7 +253,8 @@ REPLACES = {"enum": "rfw_tpu/ops/visit_intersect.py:94",
             "traverse": "rfw_tpu/ops/traverse.py:58",
             "tlas_premask": "rfw_tpu/render/intersectors.py:201",
             "tlas_walk": "rfw_tpu/render/intersectors.py:201",
-            "retransform": "rfw_tpu/render/scene_data.py:982"}
+            "retransform": "rfw_tpu/render/scene_data.py:982",
+            "extend": "rfw_tpu/render/integrator.py:637"}
 KERNELS = tuple(SOURCES)
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense)
 PEAK_FP32 = 67e12          # FLOP/s, an FMA counted as two
@@ -2339,30 +2350,36 @@ def nee_against_plain(scene, config, lanes, width, height, depth,
 
 class _HeldNee:
     """While entered, keeps the inputs of the first ``ops/nee.nee`` call of
-    each depth (chunk 0), cloned."""
+    each depth (chunk 0) in ``held`` and of the first
+    ``ops/extension.extend`` call after it in ``held_extend``, cloned."""
 
     def __enter__(self):
-        from rfw_tpu_torch.ops import nee
-        self.held, self.orig = {}, nee.nee
+        from rfw_tpu_torch.ops import extension, nee
+        self.held, self.held_extend, self.depth = {}, {}, None
+        self.orig = (nee.nee, extension.extend)
+        orig_nee, orig_extend = self.orig
 
         def held(scene, config, bsdf, lanes, width, height, depth,
                  sample_index, stats):
+            self.depth = depth
             if depth not in self.held:
-                self.held[depth] = (scene, config, _clone_lanes(lanes),
+                self.held[depth] = (scene, config, _clone(lanes),
                                     width, height, depth, sample_index)
-            return self.orig(scene, config, bsdf, lanes, width, height, depth,
-                             sample_index, stats)
-        nee.nee = held
+            return orig_nee(scene, config, bsdf, lanes, width, height, depth,
+                            sample_index, stats)
+
+        def held_extend(config, bsdf, lanes, seed, state):
+            if self.depth not in self.held_extend:
+                self.held_extend[self.depth] = (
+                    config, _clone(lanes), seed.clone(), _clone(state))
+            return orig_extend(config, bsdf, lanes, seed, state)
+        nee.nee, extension.extend = held, held_extend
         return self
 
     def __exit__(self, *exc):
-        from rfw_tpu_torch.ops import nee
-        nee.nee = self.orig
+        from rfw_tpu_torch.ops import extension, nee
+        nee.nee, extension.extend = self.orig
         return False
-
-
-def _clone_lanes(lanes):
-    return type(lanes)(*(_clone(x) for x in lanes))
 
 
 def phase_nee(rs, ptxas=None) -> dict:
@@ -2374,7 +2391,8 @@ def phase_nee(rs, ptxas=None) -> dict:
     interleaved and per lane, planted NaNs under ``debug_checks``), bit
     for bit against ``nee_plain``; its ptxas line; one launch (CUDA
     events), its device time, its bytes bound and the plain version's
-    time on the depth-0 lanes. Returns its report."""
+    time on the depth-0 lanes; then phase 5c (``phase_extend``) on the
+    extension calls caught in the same sample. Returns both reports."""
     import dataclasses
     import torch
     from rfw_tpu_torch.ops import cuda_lib, nee
@@ -2384,6 +2402,7 @@ def phase_nee(rs, ptxas=None) -> dict:
     with _HeldNee() as h:
         rs.render_frame(status=RenderStatus.RESET, samples=1)
     torch.cuda.synchronize()
+    held_extend = h.held_extend
     _check(0 in h.held and 1 in h.held, f"no depth-0 or depth-1 NEE call "
            f"caught ({sorted(h.held)})")
     for depth in (0, 1):
@@ -2462,6 +2481,124 @@ def phase_nee(rs, ptxas=None) -> dict:
     report["nee_add"] = {"err": 0.0, "ms": ms, "device_ms": device_ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": "bytes"}
+    report.update(phase_extend(held_extend, ptxas))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the BSDF extension kernel
+# ---------------------------------------------------------------------------
+
+# bytes a lane of the extension kernel reads and writes
+# (csrc/extend_kernel.cu's note)
+EXTEND_BYTES = 189 + 54
+
+
+def extend_args(case, device) -> tuple:
+    """``ops/extension.extend``'s lanes, lane seeds and the path state it
+    carries over (radiance and pid) from a ``synthetic.extend_case`` on
+    ``device``."""
+    import torch
+    from rfw_tpu_torch.ops import extension
+    from rfw_tpu_torch.render.integrator import PathState
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    lanes = case["lanes"]
+    n = case["seed"].shape[0]
+    ext = extension.ExtendLanes(
+        sd={k: on(v) for k, v in lanes["sd"].items()},
+        **{k: on(v) for k, v in lanes.items() if k != "sd"})
+    state = PathState(*(None,) * 9)._replace(
+        radiance=torch.rand((n, 3), device=device),
+        pid=torch.arange(n, dtype=torch.int32, device=device))
+    return ext, on(case["seed"]), state
+
+
+def _state_bits(a, b) -> bool:
+    """Two path states equal field for field, bit for bit."""
+    return all(_same_bits(x, y) for x, y in zip(a, b))
+
+
+def extend_against_plain(config, lanes, seed, state) -> bool:
+    """One launch of the extension kernel against ``extend_plain``
+    (Disney) on the same tensors: every field of the next path state
+    equal bit for bit."""
+    from rfw_tpu_torch.ops import cuda_lib, extension
+    from rfw_tpu_torch.ops.bsdf import disney
+    before = cuda_lib.launch_counts["extend"]
+    got = extension.extend(config, disney, lanes, seed, state)
+    want = extension.extend_plain(config, disney, lanes, seed, state)
+    return (cuda_lib.launch_counts["extend"] == before + 1
+            and _state_bits(got, want))
+
+
+def phase_extend(held, ptxas=None) -> dict:
+    """The BSDF extension kernel (phase 5c): on the slice's own depth-0
+    and bounce lanes of chunk 0 (``held``: the ``_HeldNee`` of phase 5b's
+    sample) and on made-up lanes of ``synthetic.extend_case`` at the same
+    size (a depth-0 chunk in tile order, a scattered bounce chunk; glass,
+    metallic, subsurface, back-face, alpha-cut, dead and NaN lanes;
+    Russian roulette on and off), bit for bit against ``extend_plain``;
+    its ptxas line; one launch (CUDA events), its device time, its bytes
+    bound and the plain version's time on the depth-0 lanes. Returns its
+    report."""
+    import dataclasses
+    from rfw_tpu_torch.ops import cuda_lib, extension
+    from rfw_tpu_torch.ops.bsdf import disney
+    _check(0 in held and 1 in held, f"no depth-0 or depth-1 extension "
+           f"caught ({sorted(held)})")
+    for depth in (0, 1):
+        cfg, lanes, seed, state = held[depth]
+        for rr in (True, False):
+            c = dataclasses.replace(cfg, russian_roulette=rr)
+            equal = extend_against_plain(c, lanes, seed, state)
+            print(f"phase 5c: extend kernel vs extend_plain on the slice's "
+                  f"depth-{depth} lanes of chunk 0 ({seed.shape[0]} lanes, "
+                  f"Russian roulette {'on' if rr else 'off'}): "
+                  f"{'equal bit for bit' if equal else 'DIFFERENT'}")
+            _check(equal, f"extend kernel != extend_plain at depth {depth}")
+    base = held[0][0]
+    for label, case_kw in (("depth-0 chunk", {}),
+                           ("bounce chunk", {"order": "scattered",
+                                             "glass": 0.5,
+                                             "nan_share": 0.01})):
+        lanes, seed, state = extend_args(synthetic.extend_case(
+            SEED, 518_400, **case_kw), "cuda")
+        for rr in (True, False):
+            cfg = dataclasses.replace(base, russian_roulette=rr)
+            equal = extend_against_plain(cfg, lanes, seed, state)
+            print(f"phase 5c: extend kernel vs extend_plain, made-up lanes "
+                  f"({label}, Russian roulette {'on' if rr else 'off'}): "
+                  f"{'equal bit for bit' if equal else 'DIFFERENT'}")
+            _check(equal, f"extend kernel != extend_plain ({label})")
+    p = ptxas or cuda_lib.ptxas_report(cuda_lib.build_log)
+    _check(p.get("extend_kernel", {}).get("spill_stores") == 0
+           and p.get("extend_kernel", {}).get("spill_loads") == 0,
+           f"extend_kernel: ptxas reports spills or no report "
+           f"({p.get('extend_kernel')})")
+    report = {}
+    for depth in (0, 1):
+        cfg, lanes, seed, state = held[depth]
+        n = seed.shape[0]
+        ms = _median_ms(lambda: extension.extend_kernel(cfg, lanes, seed,
+                                                        state))
+        device_ms = _device_ms(lambda: extension.extend_kernel(
+            cfg, lanes, seed, state))
+        plain_ms = _median_ms(lambda: extension.extend_plain(
+            cfg, disney, lanes, seed, state))
+        bound_ms = n * EXTEND_BYTES / PEAK_BYTES * 1e3
+        print(f"phase 5c: extend_kernel on the depth-{depth} lanes ({n}): "
+              f"ptxas {p.get('extend_kernel')}; one launch {ms:.4f} ms, "
+              f"device {device_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes: "
+              f"{EXTEND_BYTES} B x {n} lanes at {PEAK_BYTES / 1e12:.2f} "
+              f"TB/s), share {bound_ms / ms:.3f} ({bound_ms / device_ms:.3f}"
+              f" device); extend_plain {plain_ms:.2f} ms on the card")
+        if depth == 0:
+            report["extend"] = {"err": 0.0, "ms": ms, "device_ms": device_ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": "bytes"}
     return report
 
 
@@ -2914,16 +3051,18 @@ def phase_11():
 # the examples at their rfw_tpu counterparts' default sizes: (label,
 # module, arguments besides --out, the kernels its engine and intersector
 # launch, its PNGs' width, height and count: one file, frames under
-# --out, or for the viewer the frame fetched over HTTP)
+# --out, or for the viewer the frame fetched over HTTP; every example
+# but textured_env, whose BSDF is microfacet, shades with Disney and so
+# launches the extension kernel)
 EXAMPLES = (
-    ("cornell", "cornell", [], ("traverse",), (256, 256, 1)),
+    ("cornell", "cornell", [], ("traverse", "extend"), (256, 256, 1)),
     ("textured_env", "textured_env", [], ("traverse",), (256, 256, 1)),
-    ("instances", "instances", [], ("traverse",), (160, 160, 6)),
+    ("instances", "instances", [], ("traverse", "extend"), (160, 160, 6)),
     ("instances --tlas", "instances", ["--tlas"],
-     (*TLAS_KERNELS, "retransform"), (160, 160, 6)),
-    ("animation", "animation", [], ("traverse",), (160, 160, 8)),
+     (*TLAS_KERNELS, "retransform", "extend"), (160, 160, 6)),
+    ("animation", "animation", [], ("traverse", "extend"), (160, 160, 8)),
     ("viewer", "viewer", ["--size", "256", "--duration", "3"],
-     ("enum", "visit"), (256, 256, 1)),
+     ("enum", "visit", "extend"), (256, 256, 1)),
 )
 
 
@@ -2943,27 +3082,30 @@ def _clone(x):
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
     if isinstance(x, tuple):
-        return tuple(map(_clone, x))
+        items = map(_clone, x)
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
     return x
 
 
 class _Held:
-    """While entered, wraps the traverse, enum, visit, the two tlas and
-    the re-transform wrappers so that of each kernel's launches the one
-    with the most live lanes (for the tlas kernels: rays; for the
-    re-transform: triangles) is kept, inputs and output cloned, for the
-    comparison with its plain version after the run."""
+    """While entered, wraps the traverse, enum, visit, the two tlas, the
+    re-transform and the extension wrappers so that of each kernel's
+    launches the one with the most live lanes (for the tlas kernels and
+    the extension: rays; for the re-transform: triangles) is kept, inputs
+    and output cloned, for the comparison with its plain version after
+    the run."""
 
     def __enter__(self):
         from rfw_tpu_torch.bvh import tlas
-        from rfw_tpu_torch.ops import traverse
+        from rfw_tpu_torch.ops import extension, traverse
         from rfw_tpu_torch.ops import visit_intersect as vi
         from rfw_tpu_torch.render import scene_data as sd
         self.best = {}
         self.orig = (traverse.traverse_wide, vi.block_entries, vi.visit,
-                     tlas.premask, tlas.walk_group, sd.retransform)
-        launch_t, launch_e, launch_v, launch_p, launch_w, launch_r = \
-            self.orig
+                     tlas.premask, tlas.walk_group, sd.retransform,
+                     extension.extend_kernel)
+        launch_t, launch_e, launch_v, launch_p, launch_w, launch_r, \
+            launch_x = self.orig
 
         def keep(kernel, live, args, out):
             if live > self.best.get(kernel, (-1,))[0]:
@@ -3014,27 +3156,35 @@ class _Held:
                  tuple(out[k] for k in sd.MOVE_PLANES))
             return out
 
+        def extend_held(config, lanes, seed, state):
+            out = launch_x(config, lanes, seed, state)
+            keep("extend", seed.shape[0], (config, lanes, seed, state), out)
+            return out
+
         traverse.traverse_wide = traverse_held
         vi.block_entries, vi.visit = enum_held, visit_held
         tlas.premask, tlas.walk_group = premask_held, walk_held
         sd.retransform = retransform_held
+        extension.extend_kernel = extend_held
         return self
 
     def __exit__(self, *exc):
         from rfw_tpu_torch.bvh import tlas
-        from rfw_tpu_torch.ops import traverse
+        from rfw_tpu_torch.ops import extension, traverse
         from rfw_tpu_torch.ops import visit_intersect as vi
         from rfw_tpu_torch.render import scene_data as sd
         (traverse.traverse_wide, vi.block_entries, vi.visit, tlas.premask,
-         tlas.walk_group, sd.retransform) = self.orig
+         tlas.walk_group, sd.retransform, extension.extend_kernel) = \
+            self.orig
 
     def against_plain(self, label) -> dict:
         """Each held launch against its plain version, bit for bit.
         Returns the largest kernel-plain difference per kernel."""
         import torch
         from rfw_tpu_torch.bvh import tlas
-        from rfw_tpu_torch.ops import traverse
+        from rfw_tpu_torch.ops import extension, traverse
         from rfw_tpu_torch.ops import visit_intersect as vi
+        from rfw_tpu_torch.ops.bsdf import disney
         from rfw_tpu_torch.render import scene_data as sd
         err = {}
         for kernel, (live, args, out_k) in sorted(self.best.items()):
@@ -3068,6 +3218,15 @@ class _Held:
                 mode = (f"{int(count)} of {order.shape[0]} instances "
                         f"touched, {int(n_lst)} lanes listed and walked, "
                         f"{'any hit' if any_hit else 'closest'}")
+            elif kernel == "extend":
+                config, lanes_x, seed, state = args
+                out_p = extension.extend_plain(config, disney, lanes_x,
+                                               seed, state)
+                equal = _state_bits
+                lanes = seed.shape[0]
+                mode = (f"Russian roulette "
+                        f"{'on' if config.russian_roulette else 'off'}, "
+                        f"every field of the next path state")
             elif kernel == "retransform":
                 want = sd.retransform_ref(*args)
                 out_p = tuple(want[k] for k in sd.MOVE_PLANES)
@@ -3337,7 +3496,8 @@ def main() -> int:
     phase_megakernel_golden()
     launches, frame_visit = phase_slice(rs, n_tris, "phase 5", args.png,
                                         args.profile,
-                                        ("enum", "visit", *NEE_KERNELS))
+                                        ("enum", "visit", *NEE_KERNELS,
+                                         "extend"))
     phase_depth_split(rs, "phase 5")
     report.update(phase_nee(rs, ptxas))
     t0 = time.perf_counter()
@@ -3392,11 +3552,13 @@ def main() -> int:
     # each kernel's launches in the timed windows of the phases whose
     # path it is: enum and visit phase 5 (visit), expand and tvisit phase
     # 6 (tvisit), traverse phase 9 (megakernel) and phase 10 (tlas, 0),
-    # the two tlas kernels phase 10, retransform phase 10's moves; all of
+    # the two tlas kernels phase 10, retransform phase 10's moves, extend
+    # phase 5 (visit, whose NEE and extension are the kernels'); all of
     # them in phase 11 (raster, tiles); the examples' in phase 12; enum
     # and visit in the bench's timed windows, phase 13
     by_phase = {"enum": {"5": launches["enum"]},
                 "visit": {"5": launches["visit"]},
+                "extend": {"5": launches["extend"]},
                 "expand": {"6": launches["expand"]},
                 "tvisit": {"6": launches["tvisit"]},
                 "traverse": {"9": launches["traverse"],
@@ -3418,7 +3580,7 @@ def main() -> int:
     print("phase 8: launches per deformation frame (1080p, 1 spp): "
           + json.dumps(launches_8))
 
-    # no single PyTorch call computes any of the ten functions
+    # no single PyTorch call computes any of the eleven functions
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "launches_by_phase": by_phase[name],

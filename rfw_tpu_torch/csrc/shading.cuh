@@ -2,9 +2,9 @@
 // arithmetic operation for operation, so that a kernel agrees bit for bit
 // with its plain PyTorch version on the card: float32 vectors, torch's
 // clamps and divisions, the transcendentals of ops/fmath.py, the
-// counter-based streams of ops/rng.py and the Disney BSDF's evaluation
-// (ops/bsdf/disney.py::evaluate_bsdf). Header-only; every function is
-// inline.
+// counter-based streams of ops/rng.py, the Disney BSDF's evaluation
+// (ops/bsdf/disney.py::evaluate_bsdf) and the sampling helpers of its
+// bsdf_sample (ops/bsdf/common.py). Header-only; every function is inline.
 //
 // What PyTorch does on the card, and the helpers repeat:
 // - every op rounds once (the library is built --fmad=false);
@@ -103,6 +103,9 @@ __device__ __forceinline__ float cos_r(float x) {
 __device__ __forceinline__ float log_r(float x) {
   return static_cast<float>(log(static_cast<double>(x)));
 }
+__device__ __forceinline__ float exp_r(float x) {
+  return static_cast<float>(exp(static_cast<double>(x)));
+}
 
 // ops/bsdf/common.py
 __device__ __forceinline__ float lerp(float a, float b, float t) {
@@ -155,6 +158,51 @@ __device__ __forceinline__ float fr(float v_dot_n, float eio) {
   return sin_theta_t2 > 1.0f ? 1.0f : 0.5f * (r1 * r1 + r2 * r2);
 }
 
+// reflect(d, n) = d - (2 dot(d, n)) n
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) {
+  return d - n * (2.0f * dot3(d, n));
+}
+// refract_dir(wi, n, eta): the refracted direction; *ok without total
+// internal reflection.
+__device__ __forceinline__ V3 refract_dir(V3 wi, V3 n, float eta, bool* ok) {
+  const float cos_i = dot3(n, wi);
+  const float sin2_i = clamp_min(1.0f - cos_i * cos_i, 0.0f);
+  const float sin2_t = eta * eta * sin2_i;
+  *ok = sin2_t < 1.0f;
+  const float cos_t = sqrtf(clamp_min(1.0f - sin2_t, 0.0f));
+  return (-wi) * eta + n * (eta * cos_i - cos_t);
+}
+// tangent_to_world(local, t, b, n) = (t l.x + b l.y) + n l.z
+__device__ __forceinline__ V3 tangent_to_world(V3 l, V3 t, V3 b, V3 n) {
+  return t * l.x + b * l.y + n * l.z;
+}
+// diffuse_reflection_uniform and diffuse_reflection_cos_weighted: 2 pi r0
+// is the float product of r0 and 2 pi rounded to float.
+__device__ __forceinline__ V3 diffuse_uniform(float r0, float r1) {
+  const float term1 = r0 * RFW_F(2.0 * kPi);
+  const float term2 = sqrtf(clamp_min(1.0f - r1 * r1, 0.0f));
+  return v3(cos_r(term1) * term2, sin_r(term1) * term2, r1);
+}
+__device__ __forceinline__ V3 diffuse_cos_weighted(float r0, float r1) {
+  const float term1 = r0 * RFW_F(2.0 * kPi);
+  const float term2 = sqrtf(clamp_min(1.0f - r1, 0.0f));
+  return safe_normalize(v3(cos_r(term1) * term2, sin_r(term1) * term2,
+                           sqrtf(clamp_min(r1, 0.0f))));
+}
+// ops/bsdf/disney.py::_sample_half_vector: a GGX half vector, flipped
+// towards wo.
+__device__ __forceinline__ V3 sample_half_vector(V3 t, V3 b, V3 n, V3 wo,
+                                                 float roughness, float r1,
+                                                 float r2) {
+  const float cos_h = sqrtf(clamp_min(
+      (1.0f - r2) / (1.0f + (roughness * roughness - 1.0f) * r2), 0.0f));
+  const float sin_h = sqrtf(clamp_min(1.0f - cos_h * cos_h, 0.0f));
+  const float phi = r1 * RFW_F(2.0 * kPi);
+  const V3 h = tangent_to_world(v3(sin_h * cos_r(phi), sin_h * sin_r(phi),
+                                   cos_h), t, b, n);
+  return dot3(h, wo) <= 0.0f ? -h : h;
+}
+
 // The Disney parameters evaluate_bsdf reads (anisotropy and sheen are
 // not evaluated).
 struct Disney {
@@ -162,6 +210,26 @@ struct Disney {
   float metallic, subsurface, specular, roughness, specular_tint, clearcoat,
       clearcoat_gloss, transmission, eta;
 };
+
+// ops/bsdf/disney.py::bsdf_pdf(sd, n, wo, wi), given its halfway vector
+// h = safe_normalize(wi + wo).
+__device__ __forceinline__ float disney_pdf(const Disney& sd, V3 n, V3 wo,
+                                            V3 wi, V3 h) {
+  const float n_dot_l = dot3(n, wi);
+  const float brdf_pdf_below = RFW_F(1.0 / (2.0 * kPi)) * sd.subsurface * 0.5f;
+  const float f = fr(dot3(n, wo), sd.eta);
+  const float cos_theta_half = fabsf(dot3(h, n));
+  const float pdf_half = gtr2(cos_theta_half, sd.roughness) * cos_theta_half;
+  const float pdf_spec = 0.25f * pdf_half / clamp_min(dot3(wi, h), RFW_F(1e-6));
+  const float pdf_diff = fabsf(n_dot_l) * RFW_F(1.0 / kPi)
+                         * (1.0f - sd.subsurface);
+  const float bsdf_pdf_above = pdf_spec * f;
+  const float brdf_pdf_above = lerp(pdf_diff, pdf_spec, 0.5f);
+  const bool below = n_dot_l <= 0.0f;
+  const float brdf_pdf = below ? brdf_pdf_below : brdf_pdf_above;
+  const float bsdf_pdf = below ? 0.0f : bsdf_pdf_above;
+  return lerp(brdf_pdf, bsdf_pdf, sd.transmission);
+}
 
 // ops/bsdf/disney.py::evaluate_bsdf(sd, n, ., ., wo, wi): the value
 // (bsdf_eval on a front face) and its pdf (bsdf_pdf).
@@ -224,21 +292,7 @@ __device__ __forceinline__ V3 disney_evaluate(const Disney& sd, V3 n, V3 wo,
       + fs * (gs * ds) + v3(cc, cc, cc);
   const V3 brdf_side = select(n_dot_l <= 0.0f, brdf_below, brdf_above);
 
-  // bsdf_pdf
-  const float brdf_pdf_below = RFW_F(1.0 / (2.0 * kPi)) * sd.subsurface * 0.5f;
-  const float f = fr(n_dot_v, sd.eta);
-  const float cos_theta_half = fabsf(dot3(h, n));
-  const float pdf_half = gtr2(cos_theta_half, sd.roughness) * cos_theta_half;
-  const float pdf_spec = 0.25f * pdf_half / clamp_min(dot3(wi, h), RFW_F(1e-6));
-  const float pdf_diff = fabsf(n_dot_l) * RFW_F(1.0 / kPi)
-                         * (1.0f - sd.subsurface);
-  const float bsdf_pdf_above = pdf_spec * f;
-  const float brdf_pdf_above = lerp(pdf_diff, pdf_spec, 0.5f);
-  const bool below = n_dot_l <= 0.0f;
-  const float brdf_pdf = below ? brdf_pdf_below : brdf_pdf_above;
-  const float bsdf_pdf = below ? 0.0f : bsdf_pdf_above;
-  *pdf_out = lerp(brdf_pdf, bsdf_pdf, sd.transmission);
-
+  *pdf_out = disney_pdf(sd, n, wo, wi, h);
   return lerp(brdf_side, bsdf_side, sd.transmission);
 }
 

@@ -34,7 +34,7 @@ SOURCES = tuple(os.path.join(_PKG, "csrc", f)
                 for f in ("visit_kernels.cu", "expand_kernel.cu",
                           "tvisit_kernel.cu", "traverse_kernel.cu",
                           "tlas_kernel.cu", "retransform_kernel.cu",
-                          "nee_kernel.cu"))
+                          "nee_kernel.cu", "extend_kernel.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -48,7 +48,7 @@ build_log = ""
 # does not count)
 launch_counts = {"enum": 0, "visit": 0, "expand": 0, "tvisit": 0,
                  "traverse": 0, "tlas_premask": 0, "tlas_walk": 0,
-                 "retransform": 0, "nee": 0, "nee_add": 0}
+                 "retransform": 0, "nee": 0, "nee_add": 0, "extend": 0}
 
 
 def reset_launch_counts() -> None:
@@ -215,6 +215,8 @@ def load() -> ctypes.CDLL:
     lib.rfw_nee.restype = i
     lib.rfw_nee_add.argtypes = [p, i, p, p, p, i, i, p, p]
     lib.rfw_nee_add.restype = i
+    lib.rfw_extend.argtypes = [p, p]       # the ExtendArgs block, the stream
+    lib.rfw_extend.restype = i
     lib.rfw_error_string.argtypes = [i]
     lib.rfw_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -238,7 +240,7 @@ def ptxas_report(log: str) -> dict:
             k = re.search(r"\d+(t?visit_kernel|enum_kernel|expand_kernel"
                           r"|traverse_kernel|tlas_premask_kernel"
                           r"|tlas_walk_kernel|retransform_kernel"
-                          r"|nee_kernel|nee_add_kernel)",
+                          r"|nee_kernel|nee_add_kernel|extend_kernel)",
                           m.group(1))
             cur = out.setdefault(k.group(1) if k else m.group(1), {})
             continue

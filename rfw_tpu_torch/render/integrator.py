@@ -18,10 +18,9 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..ops import fmath, light_sampling, nee, raygen, rng
+from ..ops import extension, fmath, light_sampling, nee, raygen, rng
 from ..ops.bsdf import get as get_bsdf
-from ..ops.bsdf.common import (clamp_intensity, dot3, safe_origin,
-                               survival_probability)
+from ..ops.bsdf.common import clamp_intensity, dot3
 from ..ops.shade import get_shading_data
 from ..utils import tracing
 
@@ -120,7 +119,8 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
                 sort_rays: bool | None = None, height: int | None = None,
                 with_aux: bool = True):
     """One depth of the wavefront loop: closest hit → shade (sky /
-    emissive) → NEE + occlusion → extension BSDF sample.
+    emissive) → NEE + occlusion → extension BSDF sample (``ops/nee.py``
+    and ``ops/extension.py`` choose their kernel or plain step).
 
     ``probe_lane`` is the lane to probe (depth 0 only). ``sort_rays``
     overrides the closest-hit coherence sort (None: sort iff depth > 0;
@@ -254,31 +254,14 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
                           spec_bounce, last_n, torch.zeros_like(alive), pid)
         return state, stats, probe, aux
 
-    # extension: sample the BSDF
-    seed, (r3, r4) = rng.random_floats(seed, 2)
-    b_val, wi, new_pdf, _ = bsdf.sample_bsdf(
-        sd, i_n, n_geom, t_vec, b_vec, -direction, t, backfacing, r3, r4)
-    new_throughput = throughput * b_val * dot3(i_n, wi).abs()[..., None]
-    if config.russian_roulette:
-        survival = torch.clamp(survival_probability(throughput), 1e-6, 1.0)
-        seed, rr = rng.random_float(seed)
-        alive = alive & ((rr <= survival) | alpha_cut)
-        new_throughput = new_throughput / survival[..., None]
-    valid = ((new_pdf > 1e-6) & ~torch.isnan(new_pdf)
-             & (new_throughput >= 0.0).all(-1)
-             & ~torch.isnan(new_throughput).any(-1))
-    alive = alive & (valid | alpha_cut)
-    # alpha-cut lanes pass straight through the surface
-    ac = alpha_cut[..., None]
-    throughput = torch.where(ac, throughput_predpdf, new_throughput)
-    last_pdf = torch.where(alpha_cut, last_pdf, new_pdf)
-    spec_bounce = torch.where(alpha_cut, spec_bounce, spec_mat)
-    last_n = torch.where(ac, last_n, i_n)
-    origin = torch.where(ac, hit_pos + direction * config.geometry_epsilon,
-                         safe_origin(hit_pos, n_geom))
-    direction = torch.where(ac, direction, wi)
-    state = PathState(origin, direction, throughput, radiance, last_pdf,
-                      spec_bounce, last_n, alive, pid)
+    # extension: sample the BSDF for the next ray
+    with tracing.span("stage.extend"):
+        lanes = extension.ExtendLanes(
+            sd, hit_pos, i_n, n_geom, t_vec, b_vec, direction, t, backfacing,
+            throughput, throughput_predpdf, last_pdf, last_n, spec_bounce,
+            alive, alpha_cut, spec_mat)
+        state = extension.extend(config, bsdf, lanes, seed,
+                                 state._replace(radiance=radiance))
     return state, stats, probe, aux
 
 

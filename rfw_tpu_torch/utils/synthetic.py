@@ -404,6 +404,35 @@ def nee_case(seed: int, n: int, width: int = 1920, height: int = 1080,
     return {"lights": packed, "skybox": skybox, "lanes": lanes}
 
 
+def extend_case(seed: int, n: int, order: str = "tiles", glass: float = 0.2,
+                nan_share: float = 0.0) -> dict:
+    """Made-up inputs of ``ops/extension.extend`` for ``n`` lanes, from
+    ``seed``: ``nee_case``'s lanes (Disney materials with metallic,
+    subsurface and a ``glass`` share, a tenth dead, 2 % alpha-cut, a
+    ``nan_share`` of NaN throughputs) and what the extension reads
+    besides: a hit distance, a third of the lanes on a back face, the
+    throughput before the pdf, the last pdf and normal, the specular flag
+    (a fifth), and lane seeds over all of uint32. Returns numpy "lanes"
+    (``ExtendLanes``' fields, "sd" a dict) and "seed" (int64)."""
+    base = nee_case(seed, n, order=order, glass=glass, nan_share=nan_share,
+                    sky=(16, 8))["lanes"]
+    rng = np.random.default_rng(seed + 1)
+    lanes = {k: base[k] for k in ("sd", "hit_pos", "i_n", "n_geom", "t_vec",
+                                  "b_vec", "direction")}
+    lanes.update(
+        t=rng.uniform(0.01, 20.0, n).astype(np.float32),
+        backfacing=rng.random(n) < 1 / 3,
+        throughput=base["throughput"],
+        throughput_predpdf=rng.uniform(0.1, 1.0, (n, 3)).astype(np.float32),
+        last_pdf=rng.uniform(0.05, 5.0, n).astype(np.float32),
+        last_n=_unit_rows(rng.normal(size=(n, 3))),
+        spec_bounce=rng.random(n) < 0.2,
+        alive=base["alive"], alpha_cut=base["alpha_cut"],
+        spec_mat=base["spec_mat"])
+    return {"lanes": lanes,
+            "seed": rng.integers(0, 1 << 32, n, dtype=np.int64)}
+
+
 # ---------------------------------------------------------------------------
 # the 1080p slice: the stand-in for the reference bench's pica-4x scene
 # ---------------------------------------------------------------------------

@@ -27,7 +27,9 @@ The counters the port records: ``samples``, ``updates``, ``device_moves``
 ``tvisit.calls``, ``tvisit_rays.closest``, ``tvisit_rays.any`` and
 ``tvisit.passes`` (``render/intersectors.py``, ``ops/tvisit_intersect.py``);
 ``nee.kernel`` and ``nee.plain`` (``ops/nee.py``: each NEE step of a
-depth through the CUDA kernel, or through its plain PyTorch version).
+depth through the CUDA kernel, or through its plain PyTorch version);
+``extend.kernel`` and ``extend.plain`` (``ops/extension.py``: the same for
+each BSDF extension step).
 """
 
 from __future__ import annotations

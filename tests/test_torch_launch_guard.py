@@ -16,10 +16,10 @@ import ctypes
 import pytest
 import torch
 
-from chip_smoke import nee_args
+from chip_smoke import extend_args, nee_args
 from rfw_tpu_torch.bvh import tlas
 from rfw_tpu_torch.config import RenderConfig
-from rfw_tpu_torch.ops import cuda_lib, nee, traverse
+from rfw_tpu_torch.ops import cuda_lib, extension, nee, traverse
 from rfw_tpu_torch.ops import tvisit_intersect as tv
 from rfw_tpu_torch.ops import visit_intersect as vi
 from rfw_tpu_torch.render import scene_data
@@ -159,10 +159,17 @@ def _nee_add():
         radiance, rays, torch.zeros_like(rays.want))
 
 
+def _extend():
+    lanes, seed, state = extend_args(synthetic.extend_case(1, 64), "cpu")
+    return "rfw_extend", lanes.i_n, lambda: extension.extend(
+        RenderConfig(), nee.disney, lanes, seed, state)
+
+
 WRAPPERS = {"enum": _enum, "visit": _visit, "expand": _expand,
             "tvisit": _tvisit, "traverse": _traverse,
             "tlas_premask": _tlas_premask, "tlas_walk": _tlas_walk,
-            "retransform": _retransform, "nee": _nee, "nee_add": _nee_add}
+            "retransform": _retransform, "nee": _nee, "nee_add": _nee_add,
+            "extend": _extend}
 
 
 @pytest.fixture

@@ -52,20 +52,20 @@ def test_ptxas_report_parses_the_log():
 
 
 def test_kernel_sources_and_the_tlas_kernels():
-    """The library builds ten kernels from seven sources (one nvcc each)
-    and the headers they share; the report names the two tlas kernels,
-    the re-transform and the two NEE kernels."""
+    """The library builds eleven kernels from eight sources (one nvcc
+    each) and the headers they share; the report names the two tlas
+    kernels, the re-transform, the two NEE kernels and the extension."""
     names = [os.path.basename(s) for s in cuda_lib.SOURCES]
     assert names == ["visit_kernels.cu", "expand_kernel.cu",
                      "tvisit_kernel.cu", "traverse_kernel.cu",
                      "tlas_kernel.cu", "retransform_kernel.cu",
-                     "nee_kernel.cu"]
+                     "nee_kernel.cu", "extend_kernel.cu"]
     assert all(os.path.exists(s) for s in cuda_lib.SOURCES)
     assert [os.path.basename(h) for h in cuda_lib.headers()] == [
         "bvh_walk.cuh", "kernel_common.cuh", "shading.cuh"]
     assert set(cuda_lib.launch_counts) == {
         "enum", "visit", "expand", "tvisit", "traverse", "tlas_premask",
-        "tlas_walk", "retransform", "nee", "nee_add"}
+        "tlas_walk", "retransform", "nee", "nee_add", "extend"}
     log = textwrap.dedent("""\
         ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119tlas_premask_kernelEPKfS1_S1_iS1_S1_iPjS2_' for 'sm_90a'
         ptxas info    : Function properties for _ZN12_GLOBAL__N_119tlas_premask_kernelEPKfS1_S1_iS1_S1_iPjS2_
@@ -87,6 +87,10 @@ def test_kernel_sources_and_the_tlas_kernels():
         ptxas info    : Function properties for _ZN12_GLOBAL__N_114nee_add_kernelEPKfiS1_PKhS3_iiPf
             0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
         ptxas info    : Used 16 registers, 408 bytes cmem[0]
+        ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113extend_kernelENS_10ExtendArgsE' for 'sm_90a'
+        ptxas info    : Function properties for _ZN12_GLOBAL__N_113extend_kernelENS_10ExtendArgsE
+            0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 64 registers, 632 bytes cmem[0]
         """)
     assert cuda_lib.ptxas_report(log) == {
         "tlas_premask_kernel": {"stack": 0, "spill_stores": 0,
@@ -100,7 +104,9 @@ def test_kernel_sources_and_the_tlas_kernels():
         "nee_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
                        "registers": 128, "smem": 0},
         "nee_add_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
-                           "registers": 16, "smem": 0}}
+                           "registers": 16, "smem": 0},
+        "extend_kernel": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                          "registers": 64, "smem": 0}}
 
 
 def test_native_half_builds_what_the_loader_loads(monkeypatch, capsys):

@@ -274,11 +274,10 @@ def test_nee_launches_the_kernel_for_card_lanes_under_disney(monkeypatch,
             assert torch.equal(a, b)
 
 
-def _c_fields():
-    """``NeeArgs``' fields in ``csrc/nee_kernel.cu``: (name, kind)."""
-    path = os.path.join(os.path.dirname(cuda_lib.SOURCES[0]),
-                        "nee_kernel.cu")
-    body = re.search(r"struct NeeArgs \{(.*?)\};", open(path).read(),
+def _c_fields(source, struct):
+    """The fields of ``struct`` in ``csrc/<source>``: (name, kind)."""
+    path = os.path.join(os.path.dirname(cuda_lib.SOURCES[0]), source)
+    body = re.search(r"struct %s \{(.*?)\};" % struct, open(path).read(),
                      re.S).group(1)
     out = []
     for decl in body.split(";"):
@@ -295,7 +294,8 @@ def _c_fields():
 def test_kernel_argument_block_matches_the_source():
     kinds = {ctypes.c_void_p: "p", ctypes.c_int: "int",
              ctypes.c_float: "float"}
-    assert [(k, kinds[t]) for k, t in nee.NeeArgs._fields_] == _c_fields()
+    assert [(k, kinds[t]) for k, t in nee.NeeArgs._fields_] == \
+        _c_fields("nee_kernel.cu", "NeeArgs")
 
 
 def test_kernel_route_fills_the_argument_block(monkeypatch):

@@ -188,9 +188,11 @@ def test_profiler_warm_up_step_records_nothing():
             prof.step()
     assert seen[0] == ([], {})
     assert "engine.render" in names(seen[1])
-    # on the CPU each NEE step of the frame runs the plain version
-    assert seen[1].counters == {"samples": 1, "nee.plain": names(
-        seen[1]).count("stage.nee")}
+    # on the CPU each NEE and extension step of the frame runs the plain
+    # version
+    assert seen[1].counters == {
+        "samples": 1, "nee.plain": names(seen[1]).count("stage.nee"),
+        "extend.plain": names(seen[1]).count("stage.extend")}
 
 
 @pytest.mark.parametrize("samples", [1, 3])
@@ -200,8 +202,8 @@ def test_sync_sites_of_a_wavefront_frame(samples):
     compaction (``max_path_length`` a sample: the box keeps live lanes at
     every depth), the probe's read in each chunk of depth 0, the Disney
     BSDF's constant in each chunk that samples an extension (every depth
-    but the last), and the frame's three (the wait, the stats and probe,
-    the frame)."""
+    but the last; the plain extension, which CPU lanes take), and the
+    frame's three (the wait, the stats and probe, the frame)."""
     rs = cornell("brute")
     rs.render_frame(samples=1)
     tracing.clear()
@@ -223,7 +225,11 @@ def test_sync_sites_of_a_wavefront_frame(samples):
                               if s.name.startswith("sync."))
     assert got == want
     assert snap.counters == {"samples": samples,
-                             "nee.plain": names(snap).count("stage.nee")}
+                             "nee.plain": names(snap).count("stage.nee"),
+                             "extend.plain": names(snap).count("stage.extend")}
+    # on the CPU the plain extension makes the Disney constant: one wait a
+    # stage.extend span
+    assert names(snap).count("stage.extend") == want["sync.disney_const"]
     assert all(parent_name(snap, s) == "driver.compact" for s in snap.spans
                if s.name == "sync.compact")
     assert names(snap).count("isect.closest") == len(stages)
