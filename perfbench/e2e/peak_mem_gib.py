@@ -1,5 +1,6 @@
-"""peak_mem_gib (GiB): ``max_memory_allocated`` over the window, after
-``reset_peak_memory_stats`` at its start."""
+"""peak_mem_gib (GiB): ``max_memory_allocated`` over the window on the
+fullest card of the run's card set, after ``reset_peak_memory_stats`` of
+each card at its start."""
 
 
 def read(run):

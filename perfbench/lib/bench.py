@@ -81,8 +81,11 @@ def layout(config: dict) -> list[dict]:
 
 def problems(bench: dict) -> list[str]:
     """What in ``bench`` breaks the benchmark's own rules of form: names,
-    units, sources, and the files each name needs."""
+    units, sources, the files each name needs, and a cell's ``chips``
+    against its configuration's tiles (``render.n_devices``: equal to
+    ``chips`` on several cards, at most 1 on one)."""
     out = []
+    tiles = {}
 
     def name_ok(kind, n):
         if not isinstance(n, str) or not NAME.match(n):
@@ -98,7 +101,9 @@ def problems(bench: dict) -> list[str]:
             out.append(f"config file {c['file']}")
             continue
         with open(os.path.join(ROOT, c["file"])) as f:
-            need("scenes", f"{json.load(f)['scene']['generator']}.py")
+            conf = json.load(f)
+        need("scenes", f"{conf['scene']['generator']}.py")
+        tiles[c["name"]] = conf.get("render", {}).get("n_devices") or 0
         for k in c.get("reduced", []):
             name_ok("reduced key", k)
     names = {c["name"] for c in bench.get("configs", [])}
@@ -116,6 +121,11 @@ def problems(bench: dict) -> list[str]:
             need("traffic", f"{w['traffic']}.json")
         if w["chips"] not in (1, 4):
             out.append(f"workload {w['name']} chips {w['chips']}")
+        n = tiles.get(w["config"], 0)
+        if (w["chips"] > 1 and n != w["chips"]) or (w["chips"] == 1
+                                                     and n > 1):
+            out.append(f"workload {w['name']} chips {w['chips']} "
+                       f"n_devices {n}")
     for kind in ("end_to_end", "per_layer"):
         for m in bench.get(kind, []):
             name_ok("metric", m["name"])

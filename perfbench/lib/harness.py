@@ -1,6 +1,11 @@
 """One run of one cell: set-up, the measured window, the traced
 iterations (``--trace 1``), and the check of what the window produced.
 
+A run's card set is ``cuda:0`` to ``cuda:{chips - 1}``, ``chips`` from
+the cell's entry in ``BENCHMARK.json`` (the one CPU device off the card).
+The waits of set-up and of the loop, the peak memory and the trace's
+busy time span every card of it.
+
 The system under test is ``rfw_tpu_torch``. The harness reaches it only
 through its public API (``RenderSystem``), and wraps two of its calls
 from outside: the intersector the engine makes (to keep a seeded sample
@@ -30,39 +35,72 @@ BIG_T = 1e30
 FORBIDDEN = ("jax", "jaxlib", "flax", "rfw_tpu")
 
 
+def card_set(device, chips: int) -> tuple:
+    """The run's cards: ``cuda:0`` to ``cuda:{chips - 1}`` on the card,
+    else ``device`` alone."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return (dev,)
+    return tuple(torch.device("cuda", i) for i in range(chips))
+
+
+def card_seed(seed: int, card: int) -> int:
+    """The seed of card ``card``'s generator of picks: ``seed`` itself on
+    card 0, one drawn from (``seed``, ``card``) on the others."""
+    if card == 0:
+        return seed
+    return int(np.random.SeedSequence([seed & (2 ** 64 - 1), card])
+               .generate_state(1, np.uint64)[0])
+
+
 class Capture:
     """A seeded sample of ``k`` live lanes of every intersector call made
-    while ``on``: rays, bounds and answers, kept on the device and read
-    after the window. ``version`` tags each call with the scene's state
-    (the number of edits applied). After ``set_focus``, up to ``k`` more
-    live lanes a call are kept among those whose ray meets one of the
-    focus spheres (the instance an edit moved, before and after), tagged
-    as focused. While ``tracing``, each call is marked with a profiler
-    range and its live lanes are counted."""
+    while ``on``: rays, bounds and answers, kept on the call's card and
+    read after the window. Each card's picks come from a generator of
+    its own (``card_seed``). ``version`` tags each call with the scene's
+    state (the number of edits applied). After ``set_focus``, up to ``k``
+    more live lanes a call are kept among those whose ray meets one of
+    the focus spheres (the instance an edit moved, before and after),
+    tagged as focused. While ``tracing``, each call is marked with a
+    profiler range and its live lanes are counted."""
 
     def __init__(self, k: int, seed: int, device):
         self.k = k
-        self.gen = torch.Generator(device=device)
-        self.gen.manual_seed(seed)
+        self.seed = seed
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        self.gens = {0: gen}         # card index -> generator of picks
         self.device = device
         self.on = False
         self.tracing = False
         self.version = 0
-        self.focus = None
+        self.focus = None            # device -> (centres, radii)
         self.calls = []
         self.live = []
+
+    def _gen(self, dev):
+        card = dev.index or 0
+        if card not in self.gens:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(card_seed(self.seed, card))
+            self.gens[card] = gen
+        return self.gens[card]
 
     def set_focus(self, version: int, spheres):
         """Scene version ``version``, and the (centre, radius) spheres
         whose rays are kept besides the sample."""
         self.version = version
-        self.focus = (torch.tensor(np.array([c for c, _ in spheres]),
-                                   dtype=torch.float32, device=self.device),
-                      torch.tensor([r for _, r in spheres],
-                                   dtype=torch.float32, device=self.device))
+        self.focus = {self.device: (
+            torch.tensor(np.array([c for c, _ in spheres]),
+                         dtype=torch.float32, device=self.device),
+            torch.tensor([r for _, r in spheres], dtype=torch.float32,
+                         device=self.device))}
 
     def _meets_focus(self, o, d, tm):
-        c, r = self.focus
+        if o.device not in self.focus:     # a copy on the call's card
+            c, r = next(iter(self.focus.values()))
+            self.focus[o.device] = (c.to(o.device), r.to(o.device))
+        c, r = self.focus[o.device]
         oc = c[None] - o[:, None, :]                       # (n, s, 3)
         dd = (d * d).sum(-1)[:, None]
         t = (oc * d[:, None, :]).sum(-1) / dd              # closest approach
@@ -71,7 +109,7 @@ class Capture:
         return (((p - c[None]) ** 2).sum(-1) <= (r * 1.01) ** 2).any(-1)
 
     def _pick(self, n, bad, kind, o, d, tm, answer, focused):
-        key = torch.rand(n, generator=self.gen, device=o.device) \
+        key = torch.rand(n, generator=self._gen(o.device), device=o.device) \
             + bad.float() * 2.0
         idx = torch.topk(key, min(self.k, n), largest=False).indices
         # rows a focused sample keeps: read after the window, so that no
@@ -161,6 +199,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     conf = {**spec["config"], **(overrides or {}).get("config", {})}
     mix = {**spec["traffic"], **(overrides or {}).get("traffic", {})}
     dev = torch.device(device)
+    cards = card_set(dev, spec["workload"]["chips"])
     cap = Capture(mix["check"]["rays_per_call"], seed, dev)
     undo = _install(cap)
     work = tempfile.mkdtemp(prefix="perfbench-")
@@ -178,27 +217,26 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         program.place_camera(rs, conf, eye)
         mark("scene added")
         rs.synchronize()
-        sync(dev)
+        sync(cards)
         mark("scene built")
         loop = bench.plugin("loops", mix["loop"]).Loop(
-            rs, refs, layout, mix, seed, dev, cap, sync_update=trace)
+            rs, refs, layout, mix, seed, dev, cap, sync_update=trace,
+            cards=cards)
         loop.warm_up()
-        sync(dev)
+        sync(cards)
         setup_s = time.perf_counter() - t_start
         log(f"# setup {setup_s:.2f} s")
 
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
+        peaks.reset(cards)
         cap.on = True
         window_s, done = loop.window(seconds)
         cap.on = False
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else 0)
+        peak_per_card = peaks.read(cards)
         log(f"# window {window_s:.3f} s, {done} {loop.unit}")
 
         traced = None
         if trace:
-            traced = _traced(loop, mix, cap, dev, work)
+            traced = _traced(loop, mix, cap, cards, work)
         state = loop.final_state()
         del rs, refs
         loop.release()
@@ -218,7 +256,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     run_ns = SimpleNamespace(**(traced or {}), config=conf, mix=mix,
                              layout=layout, update_s=loop.update_s,
                              setup_s=setup_s, measured_s=window_s, done=done,
-                             unit=loop.unit, peak_bytes=peak)
+                             unit=loop.unit, peak_bytes=max(peak_per_card))
     metrics = {}
     kind = "metrics" if trace else "e2e"
     for m in spec["per_layer" if trace else "end_to_end"]:
@@ -226,7 +264,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     line["metrics"] = metrics
-    line["device"] = peaks.device(dev, peak)
+    line["device"] = peaks.device(cards, peak_per_card)
     if trace:
         line["device"]["busy_s"] = traced["busy_s"]
         line["device"]["window_s"] = traced["window_s"]
@@ -235,13 +273,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     return line
 
 
-def _traced(loop, mix, cap, dev, work) -> dict:
+def _traced(loop, mix, cap, cards, work) -> dict:
     """``mix["trace_iterations"]`` more iterations of the loop under the
     profiler (after one iteration it discards), reduced to what the
-    per-layer metrics read."""
+    per-layer metrics read: ``busy_s`` is the mean over ``cards`` of each
+    card's busy time."""
     from torch.profiler import ProfilerActivity, profile, schedule
     acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
+    if cards[0].type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     n = int(mix["trace_iterations"])
     path = os.path.join(work, "trace.json")
@@ -263,10 +302,10 @@ def _traced(loop, mix, cap, dev, work) -> dict:
     os.remove(path)
     live = [(k, int(v)) for k, v in cap.live]
     window = tr.window("iteration")
-    busy = tr.busy(window) if window else []
+    idx = [d.index or 0 for d in cards]
     return {"trace": tr, "window": window,
             "work_traced": sum(counted[1:]),
             "live_rays": live, "calls_traced": len(live),
-            "busy_s": sum(e - s for s, e in busy) * 1e-6,
+            "busy_s": tr.busy_s(window, idx) if window else 0.0,
             "window_s": (window[1] - window[0]) * 1e-6 if window else 0.0,
-            "breakdown": tr.breakdown(window) if window else None}
+            "breakdown": tr.breakdown(window, idx) if window else None}

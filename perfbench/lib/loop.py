@@ -1,6 +1,7 @@
 """What every closed loop of traffic shares (``loops/<loop>.py`` holds
-one loop each, named by a traffic mix's ``loop``): the measured window
-and the profiler ranges the traced run marks."""
+one loop each, named by a traffic mix's ``loop``): the measured window,
+the wait for the run's cards and the profiler ranges the traced run
+marks."""
 
 from __future__ import annotations
 
@@ -10,9 +11,12 @@ import time
 import torch
 
 
-def sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def sync(cards):
+    """Wait until every card of ``cards`` (the run's card set) has
+    finished its queued work."""
+    for dev in cards:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def marked(on: bool, name: str):
@@ -26,14 +30,17 @@ class Loop:
     """A closed loop over the program ``rs``. A loop defines ``unit``,
     ``warm_up()``, ``iteration()`` (returns the units of work it
     completed) and ``final_state()`` (what the check compares: ``frame``,
-    ``samples`` and, after edits, ``moves`` and ``tables``)."""
+    ``samples`` and, after edits, ``moves`` and ``tables``). Its waits
+    (``sync(self.cards)``) cover ``cards``, the run's card set (``dev``
+    alone when not given)."""
 
     unit = "iterations"
 
     def __init__(self, rs, refs, layout, mix, seed, dev, cap,
-                 sync_update=False):
+                 sync_update=False, cards=None):
         self.rs, self.refs, self.layout, self.mix = rs, refs, layout, mix
         self.seed, self.dev, self.cap = seed, dev, cap
+        self.cards = cards or (dev,)
         self.sync_update = sync_update
         self.traced = False
         self.frame = None

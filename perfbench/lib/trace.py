@@ -4,8 +4,10 @@ device's operations, the harness's ranges on the host, and which
 kernels each range launched.
 
 A kernel belongs to a range when the runtime call that launched it
-(same ``correlation``) started inside the range on the host. Device
-busy time is the union of kernel, copy and memset intervals.
+(same ``correlation``) started inside the range on the host. A card's
+busy time is the union of its kernel, copy and memset intervals; each
+device operation belongs to the card its event names (``args.device``;
+card 0 when it names none). A run's card set is given as card indices.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ class Trace:
 
     def __init__(self, events: list[dict]):
         self.kernels = []          # (name, ts, dur, correlation)
-        self.device_ops = []       # (name, ts, dur) of every device op
+        self.device_ops = []       # (name, ts, dur, card) of every device op
         self.ranges = defaultdict(list)   # harness range -> [(ts, end)]
         self.cpu_ops = []          # (ts, end, name) of host operators
         launch_ts = {}
@@ -43,10 +45,12 @@ class Trace:
             cat, name = ev.get("cat", ""), ev.get("name", "")
             ts, dur = float(ev.get("ts", 0.0)), float(ev.get("dur", 0.0))
             if cat in DEVICE_CATS:
-                self.device_ops.append((name, ts, dur))
+                args = ev.get("args", {})
+                self.device_ops.append((name, ts, dur,
+                                        int(args.get("device") or 0)))
                 if cat == "kernel":
                     self.kernels.append((name, ts, dur,
-                                         ev.get("args", {}).get("correlation")))
+                                         args.get("correlation")))
             elif cat == "user_annotation" and name.startswith(PREFIX):
                 self.ranges[name[len(PREFIX):]].append((ts, ts + dur))
             elif cat == "cuda_runtime":
@@ -72,12 +76,18 @@ class Trace:
             return None
         return spans[0][0], max(e for _, e in spans)
 
-    def busy(self, window) -> list:
-        """Merged device-busy intervals clipped to ``window``."""
+    def busy(self, window, card: int = 0) -> list:
+        """Card ``card``'s merged busy intervals clipped to ``window``."""
         lo, hi = window
         return [[max(s, lo), min(e, hi)] for s, e in _merge(
-            (ts, ts + dur) for _, ts, dur in self.device_ops)
+            (ts, ts + dur) for _, ts, dur, c in self.device_ops if c == card)
             if e > lo and s < hi]
+
+    def busy_s(self, window, cards=(0,)) -> float:
+        """The mean over the cards ``cards`` of each card's busy seconds
+        in ``window``."""
+        return sum(e - s for c in cards for s, e in self.busy(window, c)) \
+            * 1e-6 / len(cards)
 
     def kernels_in(self, window) -> list:
         lo, hi = window
@@ -108,32 +118,39 @@ class Trace:
         where = max(rng)[1] if rng else "harness"
         return f"{where}/{max(ops)[1] if ops else 'python'}"
 
-    def breakdown(self, window, top: int = 10) -> dict:
-        """The device operations that took most time, and the longest
-        idle gaps named by what the host was doing halfway through each
-        (seconds, unrounded)."""
+    def breakdown(self, window, cards=(0,), top: int = 10) -> dict:
+        """The device operations that took most time, summed over the
+        cards, and the longest idle gaps of each card of ``cards``, named
+        by what the host was doing halfway through each, after the card
+        (``cuda:1 ...``) when there are several (seconds, unrounded)."""
         lo, hi = window
         by_name = defaultdict(float)
-        for name, ts, dur in self.device_ops:
+        for name, ts, dur, _ in self.device_ops:
             if lo <= ts < hi:
                 by_name[name] += dur
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-        busy = self.busy(window)
-        gaps, prev = [], lo
-        for s, e in busy:
-            if s > prev:
-                gaps.append((prev, s))
-            prev = max(prev, e)
-        if hi > prev:
-            gaps.append((prev, hi))
-        gaps.sort(key=lambda g: g[0] - g[1])
+        gaps = []
+        for card in cards:
+            prev = lo
+            for s, e in self.busy(window, card):
+                if s > prev:
+                    gaps.append((card, prev, s))
+                prev = max(prev, e)
+            if hi > prev:
+                gaps.append((card, prev, hi))
+        gaps.sort(key=lambda g: g[1] - g[2])
+
+        def name(card, t):
+            where = self.host_at(t)
+            return f"cuda:{card} {where}" if len(cards) > 1 else where
         return {"device_ops": [[n, d * 1e-6] for n, d in ops],
-                "idle_gaps": [[self.host_at(0.5 * (s + e)), (e - s) * 1e-6]
-                              for s, e in gaps[:top]]}
+                "idle_gaps": [[name(c, 0.5 * (s + e)), (e - s) * 1e-6]
+                              for c, s, e in gaps[:top]]}
 
 
 def idle_percent(run):
-    """The device's idle share (%) of a traced run's window, or None."""
+    """The mean card's idle share (%) of a traced run's window (``busy_s``
+    is the mean over the card set), or None."""
     if run.trace is None or not run.window_s or not run.busy_s:
         return None
     return 100.0 * (1.0 - run.busy_s / run.window_s)

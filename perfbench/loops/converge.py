@@ -20,7 +20,7 @@ class Loop(Base):
                                        samples=n)
         with marked(self.traced, "finish_frame"):
             self.frame = self.rs.finish_frame()
-            sync(self.dev)
+            sync(self.cards)
         self.samples += n
         return n
 

@@ -8,7 +8,7 @@ length between ``min_offset`` and ``max_offset`` times the instance's
 scale. So the walk is bounded, and every instance an edit touched ends
 away from its place. The move is the difference from the instance's
 present offset, as a user drags it. With ``sync_update`` (traced runs)
-the device is synchronised after each update, so that ``update_s``
+the run's cards are synchronised after each update, so that ``update_s``
 times the update's device work too. After each move the capture of the
 intersector's rays looks also at the rays that meet the moved
 instance's bounding sphere, at its place before and after."""
@@ -59,7 +59,7 @@ class Loop(Base):
             self.refs[inst].translate(delta)
             self.rs.synchronize()
             if self.sync_update:
-                sync(self.dev)
+                sync(self.cards)
         self.update_s.append(time.perf_counter() - t0)
         self.count += 1
         c, r = self.home[inst]
@@ -67,7 +67,7 @@ class Loop(Base):
         with marked(self.traced, "finish_frame"):
             self.frame = self.rs.render_frame(
                 samples=self.mix["frame_samples"])
-            sync(self.dev)
+            sync(self.cards)
 
     def warm_up(self):
         self._edit()

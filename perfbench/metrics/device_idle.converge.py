@@ -1,6 +1,7 @@
 """device_idle.converge (%): the share of the traced iterations' window in
-which no kernel, copy or memset runs on the card (the profiler's device
-intervals merged), in the converge cells."""
+which no kernel, copy or memset runs on a card (the profiler's device
+intervals of each card merged), the mean over the run's card set, in the
+converge cells."""
 
 from perfbench.lib import trace
 

@@ -1,6 +1,7 @@
 """device_idle.edit (%): the share of the traced edits' window in which
-no kernel, copy or memset runs on the card (the profiler's device
-intervals merged), in the edit cell."""
+no kernel, copy or memset runs on a card (the profiler's device
+intervals of each card merged), the mean over the run's card set, in the
+edit cell."""
 
 from perfbench.lib import trace
 

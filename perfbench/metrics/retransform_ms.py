@@ -1,7 +1,9 @@
 """retransform_ms (ms): the mean of the program's ``scene.retransform``
-spans in the traced iterations: the host re-transform of an instance
-move (the world planes, the triangle table, the pack and the instance
-tables, in numpy), before its upload."""
+spans in the traced iterations: the device update of an instance move
+(``move_instances_device``): the transform table and, in a TLAS scene,
+the instances' tables made on the host, their upload, and the enqueue
+of the ``retransform`` kernel that writes the world planes, the triangle
+table and the pack on the card."""
 
 from perfbench.lib import spans
 

@@ -36,8 +36,11 @@ MATERIAL_DEFAULTS = {"metallic": 0.0, "subsurface": 0.0, "specular": 0.5,
                      "anisotropic": 0.0, "sheen": 0.0, "sheen_tint": 0.0,
                      "clearcoat": 0.0, "clearcoat_gloss": 1.0,
                      "transmission": 0.0, "eta": 1.0}
-# settings that change how the program schedules the work, not the image
-SCHEDULE_ONLY = ("max_rays_per_pass",)
+# settings that change how the program schedules the work, not the image:
+# chunks of lanes, and row-block tiles over several cards, whose frame
+# equals the one-card frame because every random draw is keyed by the
+# absolute pixel id
+SCHEDULE_ONLY = ("max_rays_per_pass", "n_devices")
 MIN_ROUGHNESS_PARAM = 0.001
 RAY_CHUNK_ELEMS = 1 << 24      # rays x triangles of one brute-force pass
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs one cell of the benchmark of rfw_tpu_torch once, on the CUDA card
-of the machine it is started on:
+"""Runs one cell of the benchmark of rfw_tpu_torch once, on the CUDA cards
+of the machine it is started on (``cuda:0`` to ``cuda:{chips - 1}``):
 
     python3 perfbench/run.py --workload <name> --seed <n> --seconds <s> \\
         --trace <0|1>

@@ -38,20 +38,15 @@ def edit_lost():
 @contextlib.contextmanager
 def tlas_stale():
     """A move that updates the world triangles and leaves the TLAS's
-    instance tables as they were."""
+    instance tables as they were: the device update takes the scene's
+    TLAS tables in place of those ``_moved_tlas`` makes again."""
     from rfw_tpu_torch.render import scene_data
-    saved = scene_data.retransform_instances
-
-    def stale(scene, *a, **kw):
-        out = saved(scene, *a, **kw)
-        out["tlas"] = scene["tlas"]
-        return out
-
-    scene_data.retransform_instances = stale
+    saved = scene_data._moved_tlas
+    scene_data._moved_tlas = lambda scene, instances: scene["tlas"]
     try:
         yield
     finally:
-        scene_data.retransform_instances = saved
+        scene_data._moved_tlas = saved
 
 
 FAULTS = {"edit_lost": edit_lost, "tlas_stale": tlas_stale}

@@ -240,35 +240,36 @@ def test_fault_edit_lost(monkeypatch, seconds):
 
 def test_fault_tlas_left_stale(monkeypatch):
     """A move that updates the world triangles but leaves the TLAS's
-    instance tables as they were."""
+    instance tables as they were: the device update takes the scene's
+    TLAS tables in place of those ``_moved_tlas`` makes again."""
     from rfw_tpu_torch.render import scene_data
-    orig = scene_data.retransform_instances
-
-    def stale(scene, *a, **kw):
-        out = orig(scene, *a, **kw)
-        out["tlas"] = scene["tlas"]
-        return out
-
-    monkeypatch.setattr(scene_data, "retransform_instances", stale)
+    monkeypatch.setattr(scene_data, "_moved_tlas",
+                        lambda scene, instances: scene["tlas"])
     line = small.run("sphereflake-tlas.edit")
     assert line["checks"]["update_gap"]["value"] == 0.0
     assert _fails(line)
 
 
 @pytest.mark.card
-def test_a_cell_on_the_card():
+@pytest.mark.parametrize("workload", bench.load()["workloads"],
+                         ids=lambda w: w["name"])
+def test_a_cell_on_the_card(workload):
     """One short run of each cell through run.py on the card: exit 0, a
-    correct line."""
+    correct line, one card counted a card of the cell. A cell that asks
+    for more cards than the machine has skips."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for w in bench.load()["workloads"]:
-        out = subprocess.run(
-            [sys.executable, os.path.join(bench.HERE, "run.py"),
-             "--workload", w["name"], "--seed", str(small.SEED),
-             "--seconds", "2", "--trace", "0"], capture_output=True,
-            text=True, timeout=1200, cwd=bench.ROOT)
-        assert out.returncode == 0, out.stderr[-2000:]
-        line = json.loads(out.stdout.strip().splitlines()[-1])
-        assert line["correct"] is True, line["checks"]
-        assert math.isfinite(line["metrics"]["setup_s"]["value"])
-        assert np.isfinite(line["device"]["memory_peak_bytes"])
+    if torch.cuda.device_count() < workload["chips"]:
+        pytest.skip(f"{workload['name']} needs {workload['chips']} cards; "
+                    f"this machine has {torch.cuda.device_count()}")
+    out = subprocess.run(
+        [sys.executable, os.path.join(bench.HERE, "run.py"),
+         "--workload", workload["name"], "--seed", str(small.SEED),
+         "--seconds", "2", "--trace", "0"], capture_output=True,
+        text=True, timeout=1200, cwd=bench.ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    assert line["correct"] is True, line["checks"]
+    assert math.isfinite(line["metrics"]["setup_s"]["value"])
+    assert np.isfinite(line["device"]["memory_peak_bytes"])
+    assert line["device"]["count"] == workload["chips"]
