@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..render.context import resolve_device
-from ..utils import logger
+from ..utils import logger, tracing
 
 
 def make_tile_mesh(n_devices: int | None = None, device="cuda") -> tuple:
@@ -55,16 +55,44 @@ def _to(tree, device):
     return tree
 
 
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of ``tree``'s tensors, from their shapes (no device
+    read)."""
+    return sum(t.nbytes for t in _tensors(tree))
+
+
+def moved_bytes(tree, device) -> int:
+    """The bytes a copy of ``tree`` to ``device`` moves: those of its
+    tensors not already there, from their shapes."""
+    device = torch.device(device)
+    return sum(t.nbytes for t in _tensors(tree) if t.device != device)
+
+
 def replicate(tree, device, cache: dict | None = None):
     """``tree`` (nested dicts, lists and tuples of tensors) with every
     tensor on ``device``; tensors already there are not copied. With
     ``cache``, a dict its owner clears when the tree changes, the copy
-    is made once per device and kept while ``tree`` is the same object."""
+    is made once per device and kept while ``tree`` is the same object;
+    a miss is the span ``tiles.replicate`` and adds the bytes it copies
+    to the counter ``tiles.replica_bytes``."""
     device = torch.device(device)
     if cache is None:
         return _to(tree, device)
     ent = cache.get(device)
     if ent is None or ent[0] is not tree:
-        ent = (tree, _to(tree, device))
+        with tracing.span("tiles.replicate"):
+            tracing.count("tiles.replica_bytes", moved_bytes(tree, device))
+            ent = (tree, _to(tree, device))
         cache[device] = ent
     return ent[1]

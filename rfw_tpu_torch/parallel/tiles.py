@@ -22,6 +22,26 @@ mesh of n copies of the engine's device, one chunk of the frame a tile.
 The tiles run one after another on the host: the compacted driver reads
 the live count back once a depth, so tile i + 1's dispatch waits for
 tile i's syncs, where rfw_tpu's shard_map runs the tiles at once.
+
+The copies between cards: each step sends every tile its accumulator
+rows and the view (the scatter), a scene replica goes to a card when
+the replica cache misses (``mesh.replicate``), and the tiles' rows, aux
+planes and the probe come back to the home card (the gather). Each is
+a device-to-device copy the host only enqueues; the stats' scalars are
+summed on the home card as the tiles finish. Spans and counters
+(``utils/tracing``, recorded only while a profiler records):
+
+* span ``tiles.tile``: one tile's trace on its card, one a tile a step;
+* span ``tiles.gather``: the gather of the rows, aux planes and probe;
+* span ``tiles.replicate``: a scene copy that misses the replica cache;
+* counters ``tiles.tiles`` (tiles traced), ``tiles.scatter_bytes``
+  (rows and view sent to the tiles' cards), ``tiles.gather_bytes``
+  (rows, aux planes and probe copied back) and ``tiles.replica_bytes``
+  (the scene copies of replica misses), from the tensors' shapes: a
+  tensor counts where its copy goes to another device than its own
+  (the scatter, the replicas) or comes from a tile whose device is not
+  the home one (the gather). With every tile on one card, or on the
+  CPU, every count of bytes is 0.
 """
 
 from __future__ import annotations
@@ -33,7 +53,9 @@ import torch
 from ..config import RenderConfig
 from ..render.integrator import Intersector, trace_sample
 from ..render.wavefront_driver import WavefrontDriver
-from .mesh import make_tile_mesh, replicate, row_block
+from ..utils import tracing
+from .mesh import (make_tile_mesh, moved_bytes, replicate, row_block,
+                   tree_bytes)
 
 
 def _on(dev: torch.device):
@@ -74,30 +96,43 @@ def chunk_count(n_total: int, max_lanes: int, height: int | None = None):
 
 def _run_tiles(mesh, n_local: int, replicas: dict, trace, scene, rows,
                view, sample_index: int, probe_index: int, with_aux: bool,
-               home):
+               home, gather: bool = True):
     """The one loop over the tiles: ``trace(i, scene, view, rows, rel,
     sample_index, with_aux)`` runs tile i on its device and returns
     (rows', probe, stats, aux or None), aux in the tile's pixel order,
     ``rel`` the probe index within the tile; ``rows`` holds each tile's
     (n_local, 3) accumulator rows, on any device. Returns the tiles' new
-    rows, each on its tile's device, the owning tile's probe and the
-    summed stats on ``home``, and the tiles' aux planes gathered on
-    ``home`` (None when the tiles make none)."""
+    rows (gathered on ``home`` with ``gather``, else each on its tile's
+    device), the owning tile's probe and the summed stats on ``home``,
+    and the tiles' aux planes gathered on ``home`` (None when the tiles
+    make none)."""
     owner = min(max(probe_index // n_local, 0), len(mesh) - 1)
     out, aux, stats, probe = [], [], {}, None
     for i, dev in enumerate(mesh):
         rel = min(max(probe_index - i * n_local, 0), n_local - 1)
-        with _on(dev):
-            rows_i, probe_i, st, aux_i = trace(
-                i, replicate(scene, dev, replicas), replicate(view, dev),
-                rows[i].to(dev), rel, sample_index, with_aux)
-        out.append(rows_i)
-        aux.append(aux_i)
-        _psum(stats, st, home)
-        if i == owner:
-            probe = probe_i.to(home)
-    aux = (None if aux[0] is None else
-           {k: _gather([a[k] for a in aux], home) for k in aux[0]})
+        with tracing.span("tiles.tile"):
+            tracing.count("tiles.tiles")
+            tracing.count("tiles.scatter_bytes",
+                          moved_bytes((rows[i], view), dev))
+            with _on(dev):
+                rows_i, probe_i, st, aux_i = trace(
+                    i, replicate(scene, dev, replicas), replicate(view, dev),
+                    rows[i].to(dev), rel, sample_index, with_aux)
+            out.append(rows_i)
+            aux.append(aux_i)
+            _psum(stats, st, home)
+            if i == owner:
+                probe = probe_i
+    away = [i for i, dev in enumerate(mesh) if dev != home]
+    with tracing.span("tiles.gather"):
+        tracing.count("tiles.gather_bytes", tree_bytes(
+            [(out[i] if gather else None, aux[i]) for i in away]
+            + [probe if owner in away else None]))
+        probe = probe.to(home)
+        aux = (None if aux[0] is None else
+               {k: _gather([a[k] for a in aux], home) for k in aux[0]})
+        if gather:
+            out = _gather(out, home)
     return out, probe, stats, aux
 
 
@@ -117,10 +152,8 @@ def make_step(mesh, n_local: int, trace, replicas: dict | None = None):
         home = accumulator.device
         rows = [accumulator[i * n_local:(i + 1) * n_local]
                 for i in range(len(mesh))]
-        out, probe, stats, aux = _run_tiles(
-            mesh, n_local, replicas, trace, scene, rows, view, sample_index,
-            probe_index, with_aux, home)
-        return _gather(out, home), probe, stats, aux
+        return _run_tiles(mesh, n_local, replicas, trace, scene, rows, view,
+                          sample_index, probe_index, with_aux, home)
 
     return step
 
@@ -156,8 +189,8 @@ def make_tiled_renderer(mesh, width: int, height: int,
     def step(scene, rows, view, sample_index):
         out, _, stats, _ = _run_tiles(mesh, n_local, replicas, trace, scene,
                                       rows, view, sample_index, 0, False,
-                                      mesh[0])
-        return (_gather(out, mesh[0]) if gather else tuple(out)), stats
+                                      mesh[0], gather)
+        return (out if gather else tuple(out)), stats
 
     return step
 

@@ -12,6 +12,10 @@ lane compaction between depths.
   read back to the host once per depth — the reference keeps it on the
   device under a traced trip count; eager PyTorch needs it on the host
   to size the chunk loop.
+* Counters (``utils/tracing``, recorded only while a profiler records):
+  ``driver.lanes_run``, the lanes the chunks of each depth from 1 on
+  run (``nc * chunk``), and ``driver.lanes_live``, the live lanes among
+  them (the count the compaction already reads back).
 * After the last depth the radiance scatters back to pixel order by pid.
   Depth 0's aux planes (the denoiser's guide normals and depths) stay in
   the lanes' tile-permuted order; ``aux_inverse`` orders them by pixel,
@@ -192,6 +196,10 @@ class WavefrontDriver:
                         packed, live = _compact_prefix(scene, packed, nc,
                                                        chunk)
                     nc = -(-live // chunk)
+                    # the next depth's lanes: those its chunks run, and
+                    # the live ones among them
+                    tracing.count("driver.lanes_run", nc * chunk)
+                    tracing.count("driver.lanes_live", live)
                 if depth_times is not None and self.device.type == "cuda":
                     with tracing.span("sync.depth_times"):
                         torch.cuda.synchronize(self.device)

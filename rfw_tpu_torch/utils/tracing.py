@@ -29,7 +29,13 @@ The counters the port records: ``samples``, ``updates``, ``device_moves``
 ``nee.kernel`` and ``nee.plain`` (``ops/nee.py``: each NEE step of a
 depth through the CUDA kernel, or through its plain PyTorch version);
 ``extend.kernel`` and ``extend.plain`` (``ops/extension.py``: the same for
-each BSDF extension step).
+each BSDF extension step); ``driver.lanes_run`` and ``driver.lanes_live``
+(``render/wavefront_driver.py``: the lanes each depth from 1 on runs,
+and the live ones among them); ``tiles.tiles``, ``tiles.scatter_bytes``,
+``tiles.gather_bytes`` and ``tiles.replica_bytes``
+(``parallel/tiles.py``, ``parallel/mesh.py``: the tiles traced, and the
+bytes copied between cards to the tiles, back to the home card and into
+scene replicas).
 """
 
 from __future__ import annotations

@@ -60,6 +60,16 @@ def names(snap):
     return [s.name for s in snap.spans]
 
 
+def lanes_run(snap):
+    """What ``driver.lanes_run`` should read: one chunk of 1024 lanes for
+    each ``driver.stage`` of a depth from 1 on."""
+    n = RenderConfig().max_path_length + 1
+    depths = [i for i, s in enumerate(snap.spans) if s.name == "driver.depth"]
+    level = {i: k % n for k, i in enumerate(depths)}
+    return 1024 * sum(level[s.parent] > 0 for s in snap.spans
+                      if s.name == "driver.stage")
+
+
 def parent_name(snap, s):
     return snap.spans[s.parent].name if s.parent >= 0 else None
 
@@ -189,10 +199,14 @@ def test_profiler_warm_up_step_records_nothing():
     assert seen[0] == ([], {})
     assert "engine.render" in names(seen[1])
     # on the CPU each NEE and extension step of the frame runs the plain
-    # version
+    # version; the driver counts the lanes of depths 1 and up, and the
+    # live ones among them
+    live = seen[1].counters.get("driver.lanes_live", 0)
     assert seen[1].counters == {
         "samples": 1, "nee.plain": names(seen[1]).count("stage.nee"),
-        "extend.plain": names(seen[1]).count("stage.extend")}
+        "extend.plain": names(seen[1]).count("stage.extend"),
+        "driver.lanes_run": lanes_run(seen[1]), "driver.lanes_live": live}
+    assert 0 < live <= lanes_run(seen[1])
 
 
 @pytest.mark.parametrize("samples", [1, 3])
@@ -224,9 +238,15 @@ def test_sync_sites_of_a_wavefront_frame(samples):
     got = collections.Counter(s.name for s in snap.spans
                               if s.name.startswith("sync."))
     assert got == want
+    live = snap.counters.get("driver.lanes_live", 0)
     assert snap.counters == {"samples": samples,
                              "nee.plain": names(snap).count("stage.nee"),
-                             "extend.plain": names(snap).count("stage.extend")}
+                             "extend.plain": names(snap).count("stage.extend"),
+                             "driver.lanes_run": 1024 * sum(d > 0
+                                                            for d in stages),
+                             "driver.lanes_live": live}
+    assert 0 < live <= snap.counters["driver.lanes_run"]
+    assert lanes_run(snap) == snap.counters["driver.lanes_run"]
     # on the CPU the plain extension makes the Disney constant: one wait a
     # stage.extend span
     assert names(snap).count("stage.extend") == want["sync.disney_const"]
